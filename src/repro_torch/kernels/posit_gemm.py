@@ -1,0 +1,330 @@
+"""Posit GEMM via an exact hi/lo f32 split: Hopper kernel + plain versions.
+
+The counterpart of ``repro.kernels.posit_gemm`` (the Pallas TPU kernel).
+Each posit word decodes exactly to an f32 pair ``x = hi + lo`` (hi: the top
+24 significand bits, lo: the bottom 4), and ``A @ B`` is summed as
+``Ah@Bh + (Ah@Bl + Al@Bh)`` with f32 accumulation over K chunks of ``bk``
+columns; ``mode="split3_comp"`` adds a Knuth TwoSum error term per chunk.
+``posit_gemm`` rounds ±accumulator to posit words in the kernel's epilogue.
+The semantics, bounds and exactness domain are the reference's (see its
+module docstring).
+
+Two implementations of every function live here:
+
+* the **CUDA kernels** (``csrc/posit_gemm.cu``, device functions in
+  ``csrc/posit_codec.cuh``), launched by the public wrappers for CUDA
+  tensors.  One kernel computes both GEMM entry points; the decode and
+  encode device functions also get elementwise kernels of their own so
+  they can be checked exhaustively on the card;
+* the **plain PyTorch versions** (``*_plain``), which the wrappers use for
+  CPU tensors and only for them.  They mirror the device functions op for
+  op (bit-identical to the reference's ``decode_split_f32`` /
+  ``encode_posit_f32``) and emulate the kernel's tile dataflow for the
+  GEMM (bk-chunked hi/lo products with f32 accumulation, TwoSum for
+  ``_comp``).  Their f32 sums are ordered by the library's matmul, so the
+  GEMM is held to the reference's error bound, not to its bits.
+
+For a CUDA tensor a wrapper launches its kernel or raises; it never falls
+back.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+Unlike the TPU kernel, no shape needs padding: the kernel masks ragged
+edges, and the plain GEMM takes a short last K chunk, which gives the same
+sums as the reference's zero-padded one.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import P16E1, P32E2, PositFormat
+from repro_torch.kernels import _build
+
+FMT_IDS = {"p32e2": 0, "p16e1": 1, "p8e2": 2, "p8e0": 3}
+KERNEL_BK = 16          # the kernel's K tile; bk must be a multiple of it
+_NAN_BITS = 0x7FC00000
+
+MODES = ("split3", "split3_comp")
+
+
+# --------------------------------------------------------------------------
+# plain versions of the device functions (int32/f32 ops only)
+# --------------------------------------------------------------------------
+
+def _floor_log2_i32(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) for x > 0, int32, 5 fixed binary-search steps."""
+    r = torch.zeros_like(x)
+    for s in (16, 8, 4, 2, 1):
+        t = x >> s
+        big = t > 0
+        x = torch.where(big, t, x)
+        r = r + torch.where(big, s, 0).to(torch.int32)
+    return r
+
+
+def _pow2_f32(e: torch.Tensor) -> torch.Tensor:
+    """2.0**e as f32 via exponent-field construction; caller masks
+    e < -126."""
+    return ((e + 127).clamp(1, 254) << 23).to(torch.int32).view(torch.float32)
+
+
+def decode_split_f32_plain(p: torch.Tensor, fmt: PositFormat = P32E2):
+    """int32 posit words -> (hi, lo) f32 with hi + lo == value exactly for
+    |value| >= 2^-99; zero -> (0, 0); NaR -> NaN in hi."""
+    p = p.to(torch.int32)
+    nbits, es = fmt.nbits, fmt.es
+    is_zero = p == 0
+    is_nar = p == fmt.nar_pattern
+    signbit = p < 0
+    a = torch.where(signbit, 0 - p, p)                   # 2's-complement abs
+    body = a << (33 - nbits)                             # regime MSB at bit31
+    r0 = body < 0
+    y = torch.where(r0, ~body, body)
+    y_safe = torch.where(y == 0, 1, y)
+    m = 31 - _floor_log2_i32(y_safe)                     # regime run length
+    k = torch.where(r0, m - 1, -m)
+    u = (body << m) << 1                                 # strip regime+term
+    e = ((u >> (32 - es)) & ((1 << es) - 1)) if es else torch.zeros_like(u)
+    frac = u << es
+    sig = (1 << 27) | ((frac >> 5) & ((1 << 27) - 1))    # 28-bit significand
+    scale = k * (1 << es) + e
+
+    sgn = torch.where(signbit, -1.0, 1.0).to(torch.float32)
+    dead = is_zero | is_nar
+    zero = torch.zeros((), dtype=torch.float32, device=p.device)
+    ph = torch.where((scale - 23 >= -126) & ~dead, _pow2_f32(scale - 23), zero)
+    plo = torch.where((scale - 27 >= -126) & ~dead, _pow2_f32(scale - 27),
+                      zero)
+    hi = (sig >> 4).to(torch.float32) * ph * sgn
+    lo = (sig & 15).to(torch.float32) * plo * sgn
+    nan = torch.tensor(_NAN_BITS, dtype=torch.int32,
+                       device=p.device).view(torch.float32)
+    return torch.where(is_nar, nan, hi), lo
+
+
+def encode_posit_f32_plain(x: torch.Tensor,
+                           fmt: PositFormat = P32E2) -> torch.Tensor:
+    """f32 values -> int32 posit words (RNE, ties to the even *pattern*,
+    clamped to maxpos/minpos, inf/NaN -> NaR), int32 ops only."""
+    nbits, es = fmt.nbits, fmt.es
+    ms = fmt.max_scale
+    bits = x.to(torch.float32).view(torch.int32)
+    sign = bits < 0
+    expf = (bits >> 23) & 0xFF
+    man = bits & 0x7FFFFF
+    is_zero = (expf == 0) & (man == 0)
+    is_nar = expf == 255
+    scale = torch.where(expf == 0, -150, expf - 127).to(torch.int32)
+    over = scale >= ms
+    under = (scale < -ms) & ~is_zero
+    sc = scale.clamp(-ms, ms - 1)
+
+    k = sc >> es
+    e = sc & ((1 << es) - 1)
+    reg_len = torch.where(k >= 0, k + 2, 1 - k)
+    avail = (nbits - 1) - reg_len
+    # k < 0 lanes take the other branch; clamp keeps their shift defined.
+    regime = torch.where(k >= 0, ((1 << (k.clamp(min=0) + 1)) - 1) << 1,
+                         1).to(torch.int32)
+    ef = (1 << (es + 23)) | (e << 23) | man              # [1|e|frac23]
+    d = ((es + 23) - avail).clamp(min=0)
+    shl = (avail - (es + 23)).clamp(min=0)
+    kf = (ef >> d) - (1 << ((es + 23) - d))              # strip hidden bit
+    pat0 = (regime << avail) | (kf << shl)
+    dropped = ef & ((1 << d) - 1)
+    half = (1 << d) >> 1
+    rnd = (dropped > half) | ((dropped == half) & (dropped != 0)
+                             & ((pat0 & 1) == 1))
+    pat = pat0 + rnd.to(torch.int32)
+
+    pat = torch.where(over, fmt.maxpos_pattern, pat)
+    pat = torch.where(under, 1, pat)
+    out = torch.where(sign, 0 - pat, pat)
+    out = torch.where(is_zero, 0, out)
+    return torch.where(is_nar, fmt.nar_pattern, out).to(torch.int32)
+
+
+def _check_gemm_args(a_p, b_p, bk, mode):
+    if a_p.dim() != 2 or b_p.dim() != 2 or a_p.shape[1] != b_p.shape[0]:
+        raise ValueError(f"bad GEMM shapes {tuple(a_p.shape)} @ "
+                         f"{tuple(b_p.shape)}")
+    if a_p.dtype != torch.int32 or b_p.dtype != torch.int32:
+        raise TypeError(f"posit words must be int32, got {a_p.dtype}, "
+                        f"{b_p.dtype}")
+    if a_p.device != b_p.device:
+        raise ValueError(f"operands on {a_p.device} and {b_p.device}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; known: {MODES}")
+    if bk <= 0 or bk % KERNEL_BK:
+        raise ValueError(f"bk={bk} must be a positive multiple of "
+                         f"{KERNEL_BK}")
+
+
+def posit_gemm_f32_plain(a_p: torch.Tensor, b_p: torch.Tensor, *,
+                         bk: int = 128, mode: str = "split3",
+                         fmt: PositFormat = P32E2) -> torch.Tensor:
+    """Plain version of the kernel's f32-accumulator GEMM: the tile
+    dataflow (per bk chunk: hi/lo products, f32 sums, TwoSum for
+    ``split3_comp``) with the chunk products done by ``torch.matmul``."""
+    _check_gemm_args(a_p, b_p, bk, mode)
+    ah, al = decode_split_f32_plain(a_p, fmt)
+    bh, bl = decode_split_f32_plain(b_p, fmt)
+    m, k = a_p.shape
+    n = b_p.shape[1]
+    acc = torch.zeros((m, n), dtype=torch.float32, device=a_p.device)
+    err = torch.zeros_like(acc)
+    for c0 in range(0, k, bk):
+        ahc, alc = ah[:, c0:c0 + bk], al[:, c0:c0 + bk]
+        bhc, blc = bh[c0:c0 + bk], bl[c0:c0 + bk]
+        partial = ahc @ bhc + (ahc @ blc + alc @ bhc)
+        if mode == "split3_comp":
+            s = acc + partial
+            bp = s - acc                                 # Knuth TwoSum
+            err = err + ((acc - (s - bp)) + (partial - bp))
+            acc = s
+        else:
+            acc = acc + partial
+    return acc + err if mode == "split3_comp" else acc
+
+
+def posit_gemm_plain(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
+                     mode: str = "split3", negate: bool = False,
+                     fmt: PositFormat = P32E2) -> torch.Tensor:
+    """Plain version of the fused-encode GEMM: encode(±f32 accumulator)."""
+    acc = posit_gemm_f32_plain(a_p, b_p, bk=bk, mode=mode, fmt=fmt)
+    return encode_posit_f32_plain(-acc if negate else acc, fmt)
+
+
+# --------------------------------------------------------------------------
+# wrappers: kernel for CUDA tensors, plain version for CPU tensors
+# --------------------------------------------------------------------------
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {rc}")
+
+
+def _rows_unit_stride(t: torch.Tensor) -> torch.Tensor:
+    """Row-major with unit column stride (any leading dimension), as the
+    kernel reads it; copies only when the layout is otherwise."""
+    if t.stride(1) == 1 and t.stride(0) >= max(t.shape[1], 1):
+        return t
+    return t.contiguous()
+
+
+def _launch_gemm(a_p, b_p, *, bk, mode, emit_posit, negate, fmt):
+    a = _rows_unit_stride(a_p)
+    b = _rows_unit_stride(b_p)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), device=a.device,
+                      dtype=torch.int32 if emit_posit else torch.float32)
+    if m == 0 or n == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    with torch.cuda.device(a.device):
+        rc = _build.lib().posit_gemm_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+            a.stride(0), b.stride(0), n, FMT_IDS[fmt.name],
+            int(mode == "split3_comp"), int(emit_posit), int(negate), bk,
+            _stream(a))
+    _raise_on(rc, "posit_gemm")
+    (posit_gemm if emit_posit else posit_gemm_f32).launches += 1
+    return out
+
+
+def posit_gemm_f32(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
+                   mode: str = "split3",
+                   fmt: PositFormat = P32E2) -> torch.Tensor:
+    """(M,K) @ (K,N) over int32 posit words -> f32 accumulator.
+
+    CUDA tensors: the Hopper kernel (one launch); CPU tensors: the plain
+    version.  ``bk`` is the accumulation chunk (a multiple of 16)."""
+    _check_gemm_args(a_p, b_p, bk, mode)
+    if not a_p.is_cuda:
+        return posit_gemm_f32_plain(a_p, b_p, bk=bk, mode=mode, fmt=fmt)
+    return _launch_gemm(a_p, b_p, bk=bk, mode=mode, emit_posit=False,
+                        negate=False, fmt=fmt)
+
+
+def posit_gemm(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
+               mode: str = "split3", negate: bool = False,
+               fmt: PositFormat = P32E2) -> torch.Tensor:
+    """(M,K) @ (K,N) posit words -> posit words, encode fused in-kernel
+    (``negate`` flips the sign exactly first: the BLAS alpha=-1 form).
+    Bit-identical to ``encode_posit_f32(±posit_gemm_f32(...))``."""
+    _check_gemm_args(a_p, b_p, bk, mode)
+    if not a_p.is_cuda:
+        return posit_gemm_plain(a_p, b_p, bk=bk, mode=mode, negate=negate,
+                                fmt=fmt)
+    return _launch_gemm(a_p, b_p, bk=bk, mode=mode, emit_posit=True,
+                        negate=negate, fmt=fmt)
+
+
+def decode_split_f32(p: torch.Tensor, fmt: PositFormat = P32E2):
+    """Posit words -> (hi, lo) f32; the elementwise kernel of the GEMM's
+    decode device function for CUDA tensors, the plain version on CPU."""
+    if p.dtype != torch.int32:
+        raise TypeError(f"posit words must be int32, got {p.dtype}")
+    if not p.is_cuda:
+        return decode_split_f32_plain(p, fmt)
+    src = p.contiguous()
+    hi = torch.empty(src.shape, dtype=torch.float32, device=p.device)
+    lo = torch.empty_like(hi)
+    if src.numel() == 0:
+        return hi, lo
+    with torch.cuda.device(p.device):
+        rc = _build.lib().posit_decode_split_launch(
+            src.data_ptr(), hi.data_ptr(), lo.data_ptr(), src.numel(),
+            FMT_IDS[fmt.name], _stream(src))
+    _raise_on(rc, "decode_split")
+    decode_split_f32.launches += 1
+    return hi, lo
+
+
+def encode_posit_f32(x: torch.Tensor, fmt: PositFormat = P32E2):
+    """f32 -> posit words; the elementwise kernel of the GEMM's encode
+    device function for CUDA tensors, the plain version on CPU."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"encode_posit_f32 takes float32, got {x.dtype}")
+    if not x.is_cuda:
+        return encode_posit_f32_plain(x, fmt)
+    src = x.contiguous()
+    out = torch.empty(src.shape, dtype=torch.int32, device=x.device)
+    if src.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        rc = _build.lib().posit_encode_launch(
+            src.data_ptr(), out.data_ptr(), src.numel(), FMT_IDS[fmt.name],
+            _stream(src))
+    _raise_on(rc, "encode_posit")
+    encode_posit_f32.launches += 1
+    return out
+
+
+def encode_p32_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> Posit(32,2) words."""
+    return encode_posit_f32(x, P32E2)
+
+
+def encode_p16_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> Posit(16,1) words."""
+    return encode_posit_f32(x, P16E1)
+
+
+KERNEL_WRAPPERS = (posit_gemm_f32, posit_gemm, decode_split_f32,
+                   encode_posit_f32)
+for _w in KERNEL_WRAPPERS:
+    _w.launches = 0
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel launches per wrapper since the last reset."""
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0

@@ -1,0 +1,211 @@
+"""The port's posit codec (repro_torch.core) against the JAX package and the
+rational oracle, on the same numpy-made words and values.
+
+Everything here is integer arithmetic or separately rounded IEEE f64
+arithmetic, so the contract is bit-identity, never a tolerance.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import posit_oracle as O
+import torch_inputs as ti
+from repro.core import formats as JF
+from repro.core import posit as JP
+from repro_torch.core import formats as TF
+from repro_torch.core import posit as TP
+
+FMTS = ["p32e2", "p16e1", "p8e2", "p8e0"]
+_SRC = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "src"))
+
+
+def _words(name, rng):
+    return ti.words(TF.FORMATS[name], rng, 1 << 16)
+
+
+_values = ti.values
+
+
+def _same(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    if a.dtype.kind == "f":
+        return bool(np.all((a == b) | (np.isnan(a) & np.isnan(b))))
+    return np.array_equal(a, b)
+
+
+def test_formats_copy_matches_reference():
+    assert sorted(TF.FORMATS) == sorted(JF.FORMATS)
+    for name, jf in JF.FORMATS.items():
+        tf = TF.FORMATS[name]
+        for attr in ("nbits", "es", "max_scale", "maxpos_pattern",
+                     "minpos_pattern", "nar_pattern", "max_frac_bits",
+                     "maxpos", "minpos", "eps_at_1", "wire_dtype"):
+            assert getattr(tf, attr) == getattr(jf, attr), (name, attr)
+
+
+@pytest.mark.parametrize("name", FMTS)
+def test_to_float64_and_decode_match_jax(name):
+    rng = np.random.default_rng(0)
+    w = _words(name, rng)
+    jfmt, tfmt = JF.FORMATS[name], TF.FORMATS[name]
+    want = np.asarray(JP.to_float64(jnp.asarray(w), jfmt))
+    got = TP.to_float64(torch.from_numpy(w), tfmt).numpy()
+    assert _same(got.view(np.int64), want.view(np.int64)) or _same(got, want)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    fin = ~np.isnan(want)
+    assert np.array_equal(got[fin].view(np.int64), want[fin].view(np.int64))
+    for jv, tv in zip(JP.decode(jnp.asarray(w), jfmt),
+                      TP.decode(torch.from_numpy(w), tfmt)):
+        assert np.array_equal(np.asarray(jv), tv.numpy()), name
+
+
+@pytest.mark.parametrize("name", FMTS)
+def test_from_float64_matches_jax(name):
+    rng = np.random.default_rng(1)
+    x = np.concatenate([_values(rng, lo=-300, hi=300),
+                        np.asarray(JP.to_float64(
+                            jnp.asarray(_words(name, rng)),
+                            JF.FORMATS[name]))])
+    want = np.asarray(JP.from_float64(jnp.asarray(x), JF.FORMATS[name]))
+    got = TP.from_float64(torch.from_numpy(x), TF.FORMATS[name]).numpy()
+    assert np.array_equal(got, want), x[got != want][:5]
+
+
+@pytest.mark.parametrize("name", ["p16e1", "p8e2", "p8e0"])
+def test_codec_matches_rational_oracle(name):
+    """Every word of the narrow formats decodes to the oracle's value, and
+    the oracle's value (plus the midpoints between neighbours, the tie
+    cases) encodes back to the oracle's pattern."""
+    fmt = TF.FORMATS[name]
+    w = np.arange(-(1 << (fmt.nbits - 1)), 1 << (fmt.nbits - 1),
+                  dtype=np.int32)
+    if fmt.nbits == 16:
+        w = w[::29]                                  # keep the oracle cheap
+    vals = TP.to_float64(torch.from_numpy(w), fmt).numpy()
+    xs, want = [], []
+    for p, v in zip(w.tolist(), vals.tolist()):
+        ov = O.decode(p, fmt.nbits, fmt.es)
+        if ov is None:
+            assert np.isnan(v), p
+            continue
+        assert v == float(ov), (p, v, ov)
+        xs.append(v)
+        want.append(p)
+        mid = O.decode(((p & ((1 << fmt.nbits) - 1)) << 1) | 1,
+                       fmt.nbits + 1, fmt.es)
+        if mid is not None and p != fmt.maxpos_pattern and p != -1:
+            xs.append(float(mid))
+            want.append(O.encode(mid, fmt.nbits, fmt.es))
+    got = TP.from_float64(torch.tensor(xs, dtype=torch.float64), fmt).numpy()
+    assert np.array_equal(got, np.array(want, np.int32))
+
+
+@pytest.mark.parametrize("name", ["p32e2", "p16e1"])
+def test_chain_round_matches_jax_and_round_trip(name):
+    """The reference's chain_round input set (test_perf_paths.py)."""
+    rng = np.random.default_rng(7)
+    x = _values(rng)
+    jfmt, tfmt = JF.FORMATS[name], TF.FORMATS[name]
+    got = TP.chain_round(torch.from_numpy(x), tfmt).numpy()
+    want = np.asarray(JP.chain_round(jnp.asarray(x), jfmt))
+    assert _same(got, want), x[~((got == want)
+                                 | (np.isnan(got) & np.isnan(want)))][:5]
+    trip = TP.to_float64(TP.from_float64(torch.from_numpy(x), tfmt),
+                         tfmt).numpy()
+    assert _same(got, trip)
+
+
+@pytest.mark.parametrize("name", FMTS)
+def test_float32_bit_paths_match_jax(name):
+    rng = np.random.default_rng(2)
+    with np.errstate(over="ignore"):
+        x32 = _values(rng, 20000, -160, 140).astype(np.float32)
+    bits = rng.integers(0, 2**32, 20000, dtype=np.uint64).astype(np.uint32)
+    x32 = np.concatenate([x32, bits.view(np.float32)])
+    jfmt, tfmt = JF.FORMATS[name], TF.FORMATS[name]
+    assert np.array_equal(
+        TP.from_float32_bits(torch.from_numpy(x32), tfmt).numpy(),
+        np.asarray(JP.from_float32_bits(jnp.asarray(x32), jfmt)))
+    w = _words(name, rng)
+    got = TP.to_float32_bits(torch.from_numpy(w), tfmt).numpy()
+    want = np.asarray(JP.to_float32_bits(jnp.asarray(w), jfmt))
+    assert _same(got.view(np.int32), want.view(np.int32)) or _same(got, want)
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "mul", "div", "sqrt"])
+@pytest.mark.parametrize("name", ["p32e2", "p16e1"])
+def test_fast_ops_match_jax(op, name):
+    rng = np.random.default_rng(3)
+    w = _words(name, rng)
+    a = rng.choice(w, 4000)
+    b = rng.choice(w, 4000)
+    jfmt, tfmt = JF.FORMATS[name], TF.FORMATS[name]
+    if op == "sqrt":
+        want = JP.sqrt(jnp.asarray(a), jfmt, backend="fast")
+        got = TP.sqrt(torch.from_numpy(a), tfmt, backend="fast")
+    else:
+        want = getattr(JP, op)(jnp.asarray(a), jnp.asarray(b), jfmt,
+                               backend="fast")
+        got = getattr(TP, op)(torch.from_numpy(a), torch.from_numpy(b), tfmt,
+                              backend="fast")
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+def test_chain_ops_match_word_ops():
+    """chain_* on decoded values == the fast word ops, decoded."""
+    rng = np.random.default_rng(5)
+    w = _words("p32e2", rng)
+    a, b = torch.from_numpy(rng.choice(w, 4000)), torch.from_numpy(
+        rng.choice(w, 4000))
+    av, bv = TP.chain_decode(a), TP.chain_decode(b)
+    for op in ("add", "sub", "mul", "div"):
+        got = getattr(TP, f"chain_{op}")(av, bv)
+        want = TP.to_float64(getattr(TP, op)(a, b, backend="fast"))
+        assert _same(got.numpy(), want.numpy()), op
+    got = TP.chain_sqrt(av)                  # negatives -> NaN, as NaR
+    want = TP.to_float64(TP.sqrt(a, backend="fast"))
+    assert _same(got.numpy(), want.numpy())
+
+
+def test_is_nar_and_unported_backend():
+    for name in FMTS:
+        fmt = TF.FORMATS[name]
+        w = torch.tensor([0, 1, -1, fmt.nar_pattern, fmt.maxpos_pattern],
+                         dtype=torch.int32)
+        assert TP.is_nar(w, fmt).tolist() == [False, False, False, True,
+                                              False]
+        assert np.array_equal(TP.is_nar(w, fmt).numpy(),
+                              np.asarray(JP.is_nar(jnp.asarray(w.numpy()),
+                                                   JF.FORMATS[name])))
+    with pytest.raises(NotImplementedError, match="A1"):
+        TP.add(w, w)
+
+
+def test_port_imports_no_jax():
+    """repro_torch, its kernels and chip_smoke.py import neither jax nor the
+    JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        sys.path.insert(0, %r)
+        import repro_torch, repro_torch.interop
+        import repro_torch.core.posit, repro_torch.kernels.ops
+        import repro_torch.kernels._build, repro_torch.lapack
+        sys.path.insert(0, %r)
+        import chip_smoke
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.")
+                     or m == "repro" or m.startswith("repro."))
+        print("BAD", bad)
+    """) % (_SRC, os.path.dirname(_SRC))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout, out.stdout
