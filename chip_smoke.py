@@ -3,11 +3,15 @@
 
     python3 chip_smoke.py [--out RESULT.json]
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/``,
-checks every kernel against its plain PyTorch version, drives the paper's
-§5.1 path (posit LU and Cholesky with every trailing update on the posit
-GEMM kernel, triangular solves, backward error against binary32) at full
-size, and times the kernels.  Every phase raises on a failed check, so the
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/``
+(checking that the main path's GEMM kernels do not spill), checks every
+kernel against its plain PyTorch version and the tiled GEMM kernel against
+the first (simple) kernel bit for bit, drives the paper's §5.1 path
+(posit LU and Cholesky with every trailing update on the decode pre-pass
+and the tiled GEMM kernel, triangular solves, backward error against
+binary32) at full size, and times the kernels: the tiled kernel and the
+simple one interleaved, the pre-pass, the f32 and f64 ``torch.matmul``
+yardsticks, and the whole ``rgemm`` trailing-update call.  Every phase raises on a failed check, so the
 script exits non-zero unless all of them pass.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it carries
 the card's name and power limit as ``nvidia-smi`` reports them, and the
@@ -39,7 +43,27 @@ PEAK_BYTES_PER_S = 3.35e12
 MAIN_LU = dict(n=4096, sigma=1.0, algo="lu", nb=64)
 MAIN_CHOL = dict(n=1024, sigma=1.0, algo="cholesky", nb=64)
 GEMM_SHAPES = ((65, 17, 130), (33, 65, 9), (4032, 64, 4032), (64, 64, 64))
+IDENTITY_SHAPES = ((65, 17, 130), (33, 65, 9), (257, 300, 129),
+                   (4032, 64, 4032))
 TIMED_SHAPE = (4032, 64, 4032)      # the n=4096 LU's first trailing update
+# The tiled kernel's instantiations on the main path (p32e2, split3, one K
+# chunk; f32 out and fused encode): ptxas must report no spills for them.
+MAIN_PATH_KERNELS = ("posit_gemm_kernel<32,2,0,1,0>",
+                     "posit_gemm_kernel<32,2,0,1,1>")
+SOURCES = {"posit_gemm_f32": "posit_gemm.cu", "posit_gemm": "posit_gemm.cu",
+           "decode_planes": "posit_gemm.cu",
+           "decode_split_f32": "posit_codec.cu",
+           "encode_posit_f32": "posit_codec.cu",
+           "posit_gemm_f32_simple": "posit_gemm_simple.cu",
+           "posit_gemm_simple": "posit_gemm_simple.cu"}
+REPLACES = {"posit_gemm_f32": "src/repro/kernels/posit_gemm.py:271",
+            "posit_gemm": "src/repro/kernels/posit_gemm.py:271",
+            "decode_planes": "src/repro/kernels/posit_gemm.py:211",
+            "decode_split_f32": "src/repro/kernels/posit_gemm.py:88",
+            "encode_posit_f32": "src/repro/kernels/posit_gemm.py:127",
+            "posit_gemm_f32_simple": "src/repro/kernels/posit_gemm.py:271",
+            "posit_gemm_simple": "src/repro/kernels/posit_gemm.py:271"}
+ON_MAIN_PATH = ("posit_gemm_f32", "decode_planes")
 
 
 def say(*parts):
@@ -75,6 +99,35 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed (CUDA events around the replay), after warm-up
+    calls: the kernels' time without the host's per-call launch overhead,
+    which for the GEMM's pre-pass is ten times its device time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 def same_bits(x, y) -> bool:
     """Bit-equal tensors (floats: equal bits, or NaN in both)."""
     import torch
@@ -93,16 +146,25 @@ def same_bits(x, y) -> bool:
 # --------------------------------------------------------------------------
 
 def phase_build():
+    """Build the kernels; print ptxas's registers, stack and spills per
+    kernel; the decode pre-pass and the tiled GEMM must not spill in any
+    instantiation, and the main path's must be among them."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.lib()
     secs = time.perf_counter() - t0
     say(f"[build] kernels built and loaded in {secs:.2f} s "
-        f"(nvcc {_build.build_seconds:.2f} s)")
-    for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            say("[build]", line.strip())
-    return secs
+        f"(nvcc {_build.build_seconds:.2f} s, one process per source)")
+    report = _build.ptxas_report()
+    for name, r in sorted(report.items()):
+        say(f"[build] {name:36s} {json.dumps(r)}")
+    for name in MAIN_PATH_KERNELS:
+        check(name in report, f"ptxas reported nothing for {name}")
+    for name, r in report.items():
+        if name.startswith(("posit_gemm_kernel<", "decode_planes_kernel<")):
+            check(r["spill_stores"] == r["spill_loads"] == r["stack"] == 0,
+                  f"{name} spills: {r}")
+    return secs, report
 
 
 def phase_plain_codec(dev):
@@ -187,12 +249,12 @@ def phase_gemm(dev):
     import numpy as np
     import torch
     from repro_torch.core import posit
-    from repro_torch.core.formats import P16E1, P32E2
+    from repro_torch.core.formats import FORMATS
     from repro_torch.kernels import posit_gemm as pg
     import torch_inputs as ti
     rng = np.random.default_rng(22)
     worst = {}
-    for fmt in (P32E2, P16E1):
+    for fmt in FORMATS.values():
         for (m, k, n) in GEMM_SHAPES:
             a = ti.posits(rng, (m, k), -4, 4, fmt, dev)
             b = ti.posits(rng, (k, n), -4, 4, fmt, dev)
@@ -240,6 +302,59 @@ def phase_gemm(dev):
                 f"decide: rel err kernel {e_k:.4e} plain {e_p:.4e} <= "
                 f"{limit:.4e} < hi-only control {e_hi:.4e}")
     return worst
+
+
+def phase_bit_identity(dev):
+    """The tiled kernel (pre-pass + GEMM) against the simple kernel, bit
+    for bit: every format, both modes, kc 16/48/128 (several chunks where
+    K > kc), ragged and full-size shapes, an exactly cancelling product,
+    row-strided and transposed views; the fused form against the encode
+    of its own f32 output and the simple kernel's words."""
+    import numpy as np
+    import torch
+    from repro_torch.core.formats import FORMATS
+    from repro_torch.kernels import posit_gemm as pg
+    import torch_inputs as ti
+    rng = np.random.default_rng(24)
+
+    def bits(x):
+        return x.view(torch.int32)
+    compared = 0
+    for fmt in FORMATS.values():
+        cases = []
+        for (m, k, n) in IDENTITY_SHAPES:
+            a = ti.posits(rng, (m, k), -4, 4, fmt, dev)
+            a[0, 0] = fmt.nar_pattern
+            cases.append((f"{(m, k, n)}", a,
+                          ti.posits(rng, (k, n), -4, 4, fmt, dev)))
+        cases.append(("cancelling (257, 96, 129)",
+                      *ti.cancelling_operands(rng, 257, 96, 129, fmt, dev)))
+        big = ti.posits(rng, (300, 300), -2, 2, fmt, dev)
+        cases.append(("row-strided views", big[70:, 3:67], big[3:67, 70:]))
+        cases.append(("trans_b view", big[70:, 3:67], big[70:233, 3:67].T))
+        for label, a, b in cases:
+            for mode in pg.MODES:
+                for kc in (16, 48, 128):
+                    kw = dict(bk=kc, mode=mode, fmt=fmt)
+                    got = pg.posit_gemm_f32(a, b, **kw)
+                    check(torch.equal(bits(got),
+                                      bits(pg.posit_gemm_f32_simple(a, b,
+                                                                    **kw))),
+                          f"tiled != simple: {fmt.name} {mode} kc={kc} "
+                          f"{label}")
+                    for neg in (False, True):
+                        fused = pg.posit_gemm(a, b, negate=neg, **kw)
+                        check(torch.equal(fused, pg.posit_gemm_simple(
+                            a, b, negate=neg, **kw)) and torch.equal(
+                                fused, pg.encode_posit_f32_plain(
+                                    -got if neg else got, fmt)),
+                              f"fused tiled != simple / encode(± own f32): "
+                              f"{fmt.name} {mode} kc={kc} neg={neg} {label}")
+                    compared += 3
+        say(f"[identity] {fmt.name}: tiled == simple bit for bit on "
+            f"{len(cases)} operand pairs x 2 modes x kc 16/48/128 (f32 and "
+            "fused ±encode == encode of own f32)")
+    return compared
 
 
 class StageTimer:
@@ -314,13 +429,16 @@ def phase_main_path(dev, smi):
     report = {}
     pg.reset_launch_counts()
     for cfg in (MAIN_LU, MAIN_CHOL):
-        before = pg.posit_gemm_f32.launches
+        before = pg.launch_counts()
         res, wall, stages = run_study(cfg, "pallas_split3", dev, timed=True)
-        launches = pg.posit_gemm_f32.launches - before
+        after = pg.launch_counts()
+        launches = after["posit_gemm_f32"] - before["posit_gemm_f32"]
+        prepass = after["decode_planes"] - before["decode_planes"]
         expect = math.ceil(cfg["n"] / cfg["nb"]) - 1
-        check(launches == expect,
+        check(launches == prepass == expect,
               f"{cfg['algo']} n={cfg['n']}: GEMM kernel launched {launches} "
-              f"times, expected {expect} (one per trailing update)")
+              f"times and the pre-pass {prepass}, expected {expect} each "
+              "(one per trailing update)")
         check(math.isfinite(res.e_posit) and res.e_posit > 0,
               f"{cfg['algo']}: e_posit {res.e_posit}")
         say(f"[main] {cfg['algo']} n={cfg['n']} nb={cfg['nb']} "
@@ -336,6 +454,8 @@ def phase_main_path(dev, smi):
                                    stages_s=stages, gemm_launches=launches)
     counts = pg.launch_counts()
     say(f"[main] launches on the main path: {json.dumps(counts)}")
+    check(counts["posit_gemm_f32_simple"] == counts["posit_gemm_simple"] == 0,
+          "the simple kernel was launched on the main path")
     return report, counts
 
 
@@ -357,14 +477,16 @@ def phase_fused_rgemm(dev):
     pg.reset_launch_counts()
     fused = rgemm(a, b, alpha=-1.0, backend="pallas_split3")
     counts = pg.launch_counts()
-    want = {name: int(name == "posit_gemm") for name in counts}
+    want = {name: int(name in ("posit_gemm", "decode_planes"))
+            for name in counts}
     check(counts == want, f"fused rgemm launched {counts}, expected {want}")
     check(torch.equal(fused,
                       pg.encode_posit_f32_plain(-pg.posit_gemm_f32(a, b))),
           "fused rgemm != encode(-posit_gemm_f32)")
     check(not bool(posit.is_nar(fused).any()), "fused rgemm produced NaR")
     say(f"[fused] rgemm alpha=-1 beta=0 {tuple(a.shape)}@{tuple(b.shape)}: "
-        "one posit_gemm launch, words == encode(-kernel f32 output)")
+        "one pre-pass and one posit_gemm launch, words == encode(-kernel "
+        "f32 output)")
 
 
 def phase_reference_backend(dev, report):
@@ -400,47 +522,159 @@ def phase_word_parity(dev):
             "bit-identical on GPU and CPU")
 
 
+def interleaved_ms(first, second, reps: int = 20):
+    """Device times of two functions in turns (first, second, second,
+    first; ``graph_ms`` each): (first's mean, second's mean, all four)."""
+    t = [graph_ms(f, reps) for f in (first, second, second, first)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def host_ms(fn, reps: int):
+    """Host-clock ms of synchronised calls after one warm-up: (mean, min)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sum(times) / reps, min(times)
+
+
 def phase_timings(dev, worst, smi):
-    """Kernel times at the main path's shapes, beside bound, plain version
-    and the library yardstick."""
+    """At the LU's first trailing-update shape: the tiled kernel against
+    the simple one (interleaved), in p32e2 and p16e1, both modes, both
+    output forms; the pre-pass alone; the f32 and f64 torch.matmul
+    yardsticks; the whole rgemm(alpha=-1, beta=1) call; plain versions and
+    bounds; the elementwise codec kernels."""
     import numpy as np
     import torch
     from repro_torch.core import posit
-    from repro_torch.core.formats import P32E2
+    from repro_torch.core.formats import P16E1, P32E2
     from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.kernels.ops import rgemm
     import torch_inputs as ti
     flops_rate, bytes_rate = PEAK_FP32_FLOPS, PEAK_BYTES_PER_S
     rng = np.random.default_rng(23)
     m, k, n = TIMED_SHAPE
-    a = ti.posits(rng, (m, k), -4, 4, P32E2, dev)
-    b = ti.posits(rng, (k, n), -4, 4, P32E2, dev)
-    ah, al = pg.decode_split_f32_plain(a, P32E2)
-    bh, bl = pg.decode_split_f32_plain(b, P32E2)
-    a32, b32 = ah + al, bh + bl
-    gemm_flops = 6.0 * m * k * n
     gemm_bytes = 4.0 * (m * k + k * n + m * n)
-    gemm_bound_s = max(gemm_flops / flops_rate, gemm_bytes / bytes_rate)
-    rows = []
-    for name, fn, plain in (
-            ("posit_gemm_f32", lambda: pg.posit_gemm_f32(a, b),
-             lambda: pg.posit_gemm_f32_plain(a, b)),
-            ("posit_gemm", lambda: pg.posit_gemm(a, b, negate=True),
-             lambda: pg.posit_gemm_plain(a, b, negate=True))):
-        ms = cuda_ms(fn, 20)
-        plain_ms = cuda_ms(plain, 5)
-        lib_ms = cuda_ms(lambda: torch.matmul(a32, b32), 20)
-        out, ref = fn(), plain()
-        if name == "posit_gemm":
-            err = float((posit.to_float64(out) - posit.to_float64(ref))
-                        .abs().max())
-        else:
-            err = float((out - ref).abs().max())
-        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
-                         bound_ms=gemm_bound_s * 1e3,
-                         bound_by="operations" if gemm_flops / flops_rate
-                         >= gemm_bytes / bytes_rate else "bytes",
-                         library_ms=lib_ms, max_abs_err=err,
-                         shape=[m, k, n]))
+    rows, grid, extra = {}, [], {}
+    for fmt in (P32E2, P16E1):
+        a = ti.posits(rng, (m, k), -4, 4, fmt, dev)
+        b = ti.posits(rng, (k, n), -4, 4, fmt, dev)
+        # 3 products (2 without lo planes) of 2 flops per (m, k, n)
+        flops = (6.0 if fmt.nbits > 16 else 2.0) * m * k * n
+        bound_ms = max(flops / flops_rate, gemm_bytes / bytes_rate) * 1e3
+        for mode in pg.MODES:
+            for form in ("f32", "fused"):
+                kw = dict(mode=mode, fmt=fmt)
+                if form == "f32":
+                    def tiled():
+                        return pg.posit_gemm_f32(a, b, **kw)
+
+                    def simple():
+                        return pg.posit_gemm_f32_simple(a, b, **kw)
+                else:
+                    def tiled():
+                        return pg.posit_gemm(a, b, negate=True, **kw)
+
+                    def simple():
+                        return pg.posit_gemm_simple(a, b, negate=True, **kw)
+                simple_ms, tiled_ms, raw = interleaved_ms(simple, tiled)
+                grid.append(dict(fmt=fmt.name, mode=mode, form=form,
+                                 tiled_ms=tiled_ms, simple_ms=simple_ms,
+                                 interleaved_ms=raw, bound_ms=bound_ms))
+                say(f"[time] {fmt.name} {mode:11s} {form:5s} "
+                    f"{(m, k, n)}: tiled {tiled_ms:.4f} ms, simple "
+                    f"{simple_ms:.4f} ms (simple, tiled, tiled, simple: "
+                    + ", ".join(f"{t:.4f}" for t in raw)
+                    + f"), {simple_ms / tiled_ms:.2f}x; bound "
+                    f"{bound_ms:.4f} ms, tiled at "
+                    f"{100 * bound_ms / tiled_ms:.1f} % of it, "
+                    f"{flops / tiled_ms / 1e9:.2f} TFLOP/s [{smi}]")
+        prepass_ms = graph_ms(lambda: pg.decode_planes(a, b, fmt), 20)
+        prepass_call_ms = cuda_ms(lambda: pg.decode_planes(a, b, fmt), 20)
+        ah, al = pg.decode_split_f32_plain(a, fmt)
+        bh, bl = pg.decode_split_f32_plain(b, fmt)
+        a32, b32 = ah + al, bh + bl
+        a64, b64 = posit.to_float64(a, fmt), posit.to_float64(b, fmt)
+        f32_ms = cuda_ms(lambda: torch.matmul(a32, b32), 20)
+        f64_ms = cuda_ms(lambda: torch.matmul(a64, b64), 20)
+        extra[fmt.name] = dict(prepass_ms=prepass_ms,
+                               prepass_call_ms=prepass_call_ms,
+                               matmul_f32_ms=f32_ms, matmul_f64_ms=f64_ms)
+        say(f"[time] {fmt.name} decode pre-pass {prepass_ms:.4f} ms on the "
+            f"device ({prepass_call_ms:.4f} ms a call from Python, launch "
+            "overhead included); "
+            f"torch.matmul f32 on hi + lo {f32_ms:.4f} ms; torch.matmul f64 "
+            f"on the decoded values (xla_quire's product) {f64_ms:.4f} ms "
+            f"[{smi}]")
+        if fmt is not P32E2:
+            continue
+        # The main path's rows: p32e2, split3.
+        k_pad, lda, ldb = pg.plane_layout(m, k, n)
+        by_form = {(g["form"]): g for g in grid
+                   if g["fmt"] == fmt.name and g["mode"] == "split3"}
+        for name, fn, plain, form, simple in (
+                ("posit_gemm_f32", lambda: pg.posit_gemm_f32(a, b),
+                 lambda: pg.posit_gemm_f32_plain(a, b), "f32", False),
+                ("posit_gemm", lambda: pg.posit_gemm(a, b, negate=True),
+                 lambda: pg.posit_gemm_plain(a, b, negate=True), "fused",
+                 False),
+                ("posit_gemm_f32_simple",
+                 lambda: pg.posit_gemm_f32_simple(a, b),
+                 lambda: pg.posit_gemm_f32_plain(a, b), "f32", True),
+                ("posit_gemm_simple",
+                 lambda: pg.posit_gemm_simple(a, b, negate=True),
+                 lambda: pg.posit_gemm_plain(a, b, negate=True), "fused",
+                 True)):
+            plain_ms = cuda_ms(plain, 5)
+            out, ref = fn(), plain()
+            if form == "fused":
+                err = float((posit.to_float64(out) - posit.to_float64(ref))
+                            .abs().max())
+            else:
+                err = float((out - ref).abs().max())
+            g = by_form[form]
+            rows[name] = dict(name=name,
+                              ms=g["simple_ms" if simple else "tiled_ms"],
+                              plain_ms=plain_ms, bound_ms=g["bound_ms"],
+                              bound_by="operations", library_ms=f32_ms,
+                              library_f64_ms=f64_ms, max_abs_err=err,
+                              shape=[m, k, n])
+        planes, ref = pg.decode_planes(a, b), pg.decode_planes_plain(a, b)
+        check(all(same_bits(p, r) for p, r in zip(planes, ref)),
+              "decode_planes != plain at the timed size")
+        planes_err = max(float((p.double() - r.double()).nan_to_num(0.0)
+                               .abs().max()) for p, r in zip(planes, ref))
+        rows["decode_planes"] = dict(
+            name="decode_planes", ms=prepass_ms,
+            plain_ms=cuda_ms(lambda: pg.decode_planes_plain(a, b), 5),
+            # one read of A and B, one write of the four planes
+            bound_ms=(4.0 * (m * k + k * n) + 8.0 * k_pad * (lda + ldb))
+            / bytes_rate * 1e3, bound_by="bytes", library_ms=None,
+            max_abs_err=planes_err, shape=[m, k, n])
+        # The trailing update as the studies issue it: alpha=-1, beta=1.
+        c = ti.posits(rng, (m, n), -2, 2, fmt, dev)
+        rgemm_ms, rgemm_min = host_ms(lambda: rgemm(
+            a, b, c, alpha=-1.0, beta=1.0, backend="pallas_split3"), 20)
+        gemm_host_ms, gemm_host_min = host_ms(
+            lambda: pg.posit_gemm_f32(a, b), 20)
+        extra["rgemm_trailing_update"] = dict(
+            rgemm_host_ms=rgemm_ms, rgemm_host_min_ms=rgemm_min,
+            gemm_host_ms=gemm_host_ms, gemm_host_min_ms=gemm_host_min,
+            epilogue_host_ms=rgemm_ms - gemm_host_ms)
+        say(f"[time] rgemm(alpha=-1, beta=1, pallas_split3) {(m, k, n)}: "
+            f"{rgemm_ms:.4f} ms (min {rgemm_min:.4f}) on the host clock, of "
+            f"which the pre-pass + kernel call {gemm_host_ms:.4f} ms (min "
+            f"{gemm_host_min:.4f}); the f64 beta epilogue "
+            f"{rgemm_ms - gemm_host_ms:.4f} ms [{smi}]")
+        say(f"[time] bound with the cross terms on tensor cores (2*MKN "
+            f"FFMA at {flops_rate / 1e12:.0f} TFLOP/s): "
+            f"{2.0 * m * k * n / flops_rate * 1e3:.4f} ms")
+
     words = torch.from_numpy(ti.words(P32E2, rng, 1 << 24)).to(dev)
     nw = words.numel()
     vals = torch.randn(nw, device=dev) * 100.0
@@ -449,7 +683,7 @@ def phase_timings(dev, worst, smi):
              lambda: pg.decode_split_f32_plain(words), 12.0 * nw),
             ("encode_posit_f32", lambda: pg.encode_posit_f32(vals),
              lambda: pg.encode_posit_f32_plain(vals), 8.0 * nw)):
-        ms = cuda_ms(fn, 20)
+        ms = graph_ms(fn, 20)
         plain_ms = cuda_ms(plain, 5)
         out, ref = fn(), plain()
         if isinstance(out, tuple):               # (hi, lo) f32 planes
@@ -461,20 +695,21 @@ def phase_timings(dev, worst, smi):
             err = float((posit.to_float64(out) - posit.to_float64(ref))
                         .nan_to_num(0.0).abs().max())
         check(ok, f"{name}: kernel != plain at the timed size")
-        rows.append(dict(name=name, ms=ms, plain_ms=plain_ms,
-                         bound_ms=nbytes / bytes_rate * 1e3,
-                         bound_by="bytes", library_ms=None, max_abs_err=err,
-                         shape=[nw]))
-    for r in rows:
-        say(f"[time] {r['name']:17s} shape {r['shape']}: kernel "
+        rows[name] = dict(name=name, ms=ms, plain_ms=plain_ms,
+                          bound_ms=nbytes / bytes_rate * 1e3,
+                          bound_by="bytes", library_ms=None, max_abs_err=err,
+                          shape=[nw])
+    for r in rows.values():
+        lib = r["library_ms"]
+        say(f"[time] {r['name']:21s} shape {r['shape']}: kernel "
             f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms,"
-            f" max|kernel-plain| {r['max_abs_err']:.3e} [{smi}]")
+            f"{lib if lib is None else round(lib, 4)} ms, max|kernel-plain| "
+            f"{r['max_abs_err']:.3e} [{smi}]")
     worst_gemm = max(worst.values())
     say(f"[time] worst max|kernel-plain| over the GEMM check shapes: "
         f"{worst_gemm:.3e}")
-    return rows
+    return rows, grid, extra
 
 
 def main(argv=None) -> int:
@@ -501,32 +736,27 @@ def main(argv=None) -> int:
         f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
 
     t_start = time.perf_counter()
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
     phase_plain_codec(dev)
     phase_codec_kernels(dev)
     worst = phase_gemm(dev)
+    compared = phase_bit_identity(dev)
     report, counts = phase_main_path(dev, smi)
     phase_fused_rgemm(dev)
     phase_reference_backend(dev, report)
     phase_word_parity(dev)
-    rows = phase_timings(dev, worst, smi)
+    rows, grid, extra = phase_timings(dev, worst, smi)
 
-    on_path = {"posit_gemm_f32"}
-    for name in on_path:
+    for name in ON_MAIN_PATH:
         check(counts[name] > 0, f"{name} was not launched on the main path")
-    replaces = {"posit_gemm_f32": "src/repro/kernels/posit_gemm.py:271",
-                "posit_gemm": "src/repro/kernels/posit_gemm.py:271",
-                "decode_split_f32": "src/repro/kernels/posit_gemm.py:88",
-                "encode_posit_f32": "src/repro/kernels/posit_gemm.py:127"}
-    kernels = [dict(name=r["name"], route="cuda",
-                    source="src/repro_torch/kernels/csrc/posit_gemm.cu",
-                    replaces=replaces[r["name"]],
-                    launches=counts[r["name"]],
+    src = "src/repro_torch/kernels/csrc/"
+    kernels = [dict(name=name, route="cuda", source=src + SOURCES[name],
+                    replaces=REPLACES[name], launches=counts[name],
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    on_main_path=r["name"] in on_path)
-               for r in rows]
+                    on_main_path=name in ON_MAIN_PATH)
+               for name, r in rows.items()]
     total_s = time.perf_counter() - t_start
     say(f"[done] all phases passed in {total_s:.1f} s (build {build_s:.1f} s)")
     if args.out:
@@ -535,8 +765,10 @@ def main(argv=None) -> int:
             dict(device=smi, kind=kind,
                  peaks=dict(fp32_flops=PEAK_FP32_FLOPS,
                             bytes_per_s=PEAK_BYTES_PER_S),
-                 build_s=build_s, total_s=total_s, studies=report,
-                 kernels=kernels, timings=rows), indent=1))
+                 build_s=build_s, ptxas=ptxas, total_s=total_s,
+                 identity_comparisons=compared, studies=report,
+                 kernels=kernels, timings=list(rows.values()),
+                 gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -1,46 +1,76 @@
-// Posit GEMM for NVIDIA Hopper (sm_90a), with its posit decode/encode
-// device functions and their elementwise test kernels.
+// Posit GEMM for NVIDIA Hopper (sm_90a): a decode pre-pass and a tiled
+// FFMA kernel, bit-identical to the first kernel (posit_gemm_simple.cu).
 //
 // Replaces the Pallas TPU kernel of the JAX package:
 //   repro/kernels/posit_gemm.py::_kernel (pl.pallas_call in
 //   _posit_gemm_call), reached through posit_gemm_f32 (f32 accumulator
-//   out) and posit_gemm (in-kernel posit encode, optional negate), and its
-//   in-kernel helpers decode_split_f32 (+_floor_log2_i32, _pow2_f32) and
-//   encode_posit_f32 (encode_p32_f32 / encode_p16_f32).
+//   out) and posit_gemm (in-kernel posit encode, optional negate), with its
+//   in-kernel decode_split_f32 (here the pre-pass) and encode_posit_f32
+//   (here the epilogue).
 //
 // What it computes.  C = A @ B over sign-extended int32 posit words of one
 // format.  Each word decodes exactly to an f32 pair hi + lo (hi: the top 24
 // significand bits, lo: the bottom 4; lo is zero for formats of <= 16
-// bits).  Per K chunk of `kc` columns the kernel sums
-//     partial = sum(Ah*Bh) + sum(Ah*Bl + Al*Bh)
-// and adds it into an f32 accumulator, plainly (split3) or with a Knuth
-// TwoSum error term (split3_comp).  Al*Bl (< 2^-48 relative) is dropped, as
-// on the TPU.  The final value is either stored as f32 or negated (exactly)
-// and rounded once to posit words in the epilogue.
+// bits).  For every output, ph accumulates Ah*Bh and px accumulates
+// Ah*Bl then Al*Bh, each as one fmaf chain over k ascending from +0.  At
+// the end of every kc-column chunk (and of K), partial = ph + px is folded
+// into an f32 accumulator, plainly (split3) or with a Knuth TwoSum error
+// term (split3_comp), and ph, px restart at +0.  Al*Bl (< 2^-48 relative)
+// is dropped, as on the TPU.  The result is stored as f32, or negated
+// (exactly) and rounded once to posit words.  Any tiling that keeps that
+// order per output gives the first kernel's bits.
 //
-// What bounds it.  The exact hi/lo products need full f32 multiplies: TF32
-// tensor cores keep 10 mantissa bits and would break the 24-bit hi plane,
-// so the products run as FFMA on the CUDA cores.  3 products of 2 flops per
-// (m, k, n) against the H100's 67 TFLOP/s FP32 rate make it bound by
-// operations at every shape the factorizations issue (the (4032, 64, 4032)
-// trailing update moves 67 MB but does 6.2 GFLOP).
+// What bounds it.  The hi plane carries 24 bits, which TF32 and bf16 tensor
+// cores do not keep, so the three products run as FFMA on the CUDA cores:
+// 6*M*K*N flops at 67 TFLOP/s, 0.0932 ms at (4032, 64, 4032), where the
+// bytes (one read of A and B, one write of C) take 0.02 ms.  The first
+// kernel reached a third of that bound, for three reasons: every block
+// decoded its own strips (63 decodes per word at that shape, ~35 integer
+// instructions each), its inner loop issued 16 scalar shared loads per 48
+// FFMA (one shared wavefront per load, against 4 FFMA warp-instructions an
+// SM issues a clock, caps it near 75 %), and no load overlapped compute.
 //
-// What the design does about it.  One 256-thread block per 64x64 output
-// tile, 4x4 outputs per thread held in registers; each 16-column K tile of
-// A and B is loaded once into shared memory and decoded there once (not
-// once per product), so the inner loop is 3 FFMA per output per k fed by
-// 4 shared loads per 48 FFMA.  The K loop inside the block takes the place
-// of the TPU's sequential grid axis; ragged M, N and K edges are masked in
-// the kernel (out-of-range words read as posit zero), so callers do not pad.
-// Kept simple on purpose: no wgmma, TMA or software pipelining yet.
+// What the design does about it.
+// * Decode once.  decode_planes_kernel decodes A and B into f32 hi/lo
+//   planes in one launch (0.52 M decodes instead of 32.5 M at the shape
+//   above), reading both operands through any strides.  The planes are
+//   K-major (A transposed), with K padded to a multiple of 16 by zero
+//   words and the leading dimensions to 4 floats, zeros beyond the edges.
+//   Zero words decode to (0, 0); ph and px never hold -0, so the padding's
+//   fmaf steps change no bit.  <= 16-bit formats have no lo planes.
+// * Register tiles fed at 16 bytes a load.  128 threads (16 x 8; a warp
+//   covers 4 x 8) hold a 128 x 32 block tile, 8 x 4 outputs a thread.  Per
+//   k a thread loads its 8 A and 4 B values of each plane as 3 float4
+//   (LDS.128, one wavefront each per warp): 6 loads for 96 FFMA.  The
+//   registers hold ph and px; acc and err exist only where K spans
+//   several chunks (template SINGLE false).  At most 168 registers, so
+//   three blocks share an SM and one block's prologue and epilogue hide
+//   under the others' FFMA (two blocks where all four planes are kept:
+//   p32 split3_comp over several chunks).  The first version held 8 x 8 a
+//   thread (228 registers, two blocks an SM).  Against the simple kernel
+//   in the same chip_smoke.py call (H100 80GB HBM3, 700 W) at (4032, 64,
+//   4032) it ran p32e2 split3 1.80x as fast (f32) and 1.35x (fused), and
+//   0.99x for the fused split3_comp form; 8 x 4 runs 1.92x, 1.43x and
+//   1.36x: the fused forms' integer encode finds more warps to hide under.
+// * Overlap.  Stages of 16 K rows (every legal kc is a multiple of 16, so
+//   chunk ends fall between stages) are copied with 16-byte cp.async into
+//   a ring of 3, zero-filled past the planes' edges, with one
+//   __syncthreads() per stage.
+// * Epilogue.  Fold, negate, then encode_posit or the f32 store, as the
+//   first kernel does; ragged M and N are masked here, with 16-byte stores
+//   where the row allows.
 //
-// The decode/encode device functions live in posit_codec.cuh.  Compile
-// without --use_fast_math, so the TwoSum and the f32 adds are neither
-// reassociated nor flushed.
+// Where it stands (chip_smoke.py, H100 80GB HBM3, 700 W): 0.146 ms for the
+// p32e2 split3 f32 form at (4032, 64, 4032), pre-pass included: 64 % of
+// the FFMA bound.  Moving the cross terms to bf16 tensor cores would lower
+// that bound to the hi x hi FFMA alone (0.031 ms) but change the bits.
+//
+// Compile without --use_fast_math: the fold relies on IEEE f32 adds
+// (__fadd_rn/__fsub_rn) and the products on fmaf, in this order.
 
 #include <cstdint>
-#include <cuda_runtime.h>
 
+#include "launch.cuh"
 #include "posit_codec.cuh"
 
 namespace {
@@ -48,102 +78,198 @@ namespace {
 using posit_codec::decode_split;
 using posit_codec::encode_posit;
 
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 16;          // K tile staged in shared memory
-constexpr int THREADS = 256;    // 16 x 16, each thread 4 x 4 outputs
+constexpr int BK = 16;         // K rows per stage; kc is a multiple of it
+constexpr int NSTAGE = 3;      // depth of the cp.async ring
+constexpr int THREADS = 128;   // 16 row-threads x 8 column-threads
+constexpr int TM = 8;          // rows a thread: ty*4 + i and 64 + ty*4 + i
+constexpr int TN = 4;          // columns a thread: tx*4 + j
+constexpr int BM = 16 * TM;    // 128
+constexpr int BN = 8 * TN;     // 32
+constexpr int PT = 32;         // pre-pass tile edge
 
+// Blocks an SM holds: three (<= 168 registers a thread) where a thread
+// keeps at most three accumulator planes of 8 x 4 (ph; px with lo planes;
+// acc over several K chunks; err for split3_comp), two where it keeps all
+// four, which would spill in 168.
+template <bool HAS_LO, bool COMP, bool SINGLE>
+constexpr int kMinBlocks =
+    (HAS_LO ? 2 : 1) + (SINGLE ? 0 : (COMP ? 2 : 1)) > 3 ? 2 : 3;
+
+template <int NBITS>
+constexpr int kSmemBytes =
+    NSTAGE * (NBITS > 16 ? 2 : 1) * BK * (BM + BN) * (int)sizeof(float);
+
+struct PlaneArgs {
+  const int32_t *a, *b;          // A[M, K], B[K, N] with element strides
+  int64_t sa0, sa1, sb0, sb1;
+  float *a_hi, *a_lo, *b_hi, *b_lo;   // lo: null for <= 16-bit formats
+  int m, n, k, k_pad, lda, ldb;
+};
+
+struct GemmArgs {
+  const float *a_hi, *a_lo, *b_hi, *b_lo;   // planes of decode_planes
+  void *c;                       // C[M, N], leading dimension ldc
+  int m, n, k, k_pad, lda, ldb;
+  int64_t ldc;
+  int kc, negate;
+};
+
+// Plane row r of A holds A[:, r] (so sr = sa1, sc = sa0); of B, B[r, :].
+// blockIdx.z picks the operand, (y, x) a 32 x 32 tile of its plane.  The
+// tile goes through shared memory so that reads follow the source's unit
+// stride and writes the plane's.
 template <int NBITS, int ES>
-__global__ void decode_split_kernel(const int32_t *__restrict__ p,
-                                    float *__restrict__ hi,
-                                    float *__restrict__ lo, int64_t n) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    float h, l;
-    decode_split<NBITS, ES>(p[i], h, l);
-    hi[i] = h;
-    lo[i] = l;
+__global__ void __launch_bounds__(256) decode_planes_kernel(const PlaneArgs p) {
+  constexpr bool HAS_LO = NBITS > 16;
+  __shared__ float t_hi[PT][PT + 1];
+  __shared__ float t_lo[HAS_LO ? PT : 1][PT + 1];
+  const bool is_a = blockIdx.z == 0;
+  const int32_t *src = is_a ? p.a : p.b;
+  const int cols = is_a ? p.m : p.n;
+  const int ld = is_a ? p.lda : p.ldb;
+  const int64_t sr = is_a ? p.sa1 : p.sb0;
+  const int64_t sc = is_a ? p.sa0 : p.sb1;
+  float *hi = is_a ? p.a_hi : p.b_hi;
+  float *lo = is_a ? p.a_lo : p.b_lo;
+  const int r0 = blockIdx.y * PT, c0 = blockIdx.x * PT;
+  if (r0 >= p.k_pad || c0 >= ld) return;
+  const int tx = threadIdx.x % PT, ty = threadIdx.x / PT;
+  const bool along_r = sr == 1 && sc != 1;   // source contiguous along k
+#pragma unroll
+  for (int t = 0; t < PT * PT / 256; ++t) {
+    const int i = ty + t * (256 / PT);
+    const int lr = along_r ? tx : i, lc = along_r ? i : tx;
+    const int r = r0 + lr, c = c0 + lc;
+    float h = 0.0f, l = 0.0f;
+    if (r < p.k && c < cols) decode_split<NBITS, ES>(src[r * sr + c * sc], h, l);
+    t_hi[lr][lc] = h;
+    if constexpr (HAS_LO) t_lo[lr][lc] = l;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < PT * PT / 256; ++t) {
+    const int i = ty + t * (256 / PT);
+    const int r = r0 + i, c = c0 + tx;
+    if (r < p.k_pad && c < ld) {
+      hi[(int64_t)r * ld + c] = t_hi[i][tx];
+      if constexpr (HAS_LO) lo[(int64_t)r * ld + c] = t_lo[i][tx];
+    }
   }
 }
 
-template <int NBITS, int ES>
-__global__ void encode_posit_kernel(const float *__restrict__ x,
-                                    int32_t *__restrict__ out, int64_t n) {
-  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    out[i] = encode_posit<NBITS, ES>(x[i]);
+// Four floats from shared memory in one 16-byte load (LDS.128).
+__device__ __forceinline__ void load4(float *dst, const float *src) {
+  const float4 v = *reinterpret_cast<const float4 *>(src);
+  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+}
+
+// One chunk's partial into the accumulator, as the first kernel (and one
+// TPU grid step) does it.
+template <bool COMP>
+__device__ __forceinline__ void fold(float &acc, float &err, float ph,
+                                     float px) {
+  const float partial = __fadd_rn(ph, px);
+  if constexpr (COMP) {                                // Knuth TwoSum
+    const float a0 = acc;
+    const float s = __fadd_rn(a0, partial);
+    const float bp = __fsub_rn(s, a0);
+    const float e0 = __fadd_rn(__fsub_rn(a0, __fsub_rn(s, bp)),
+                               __fsub_rn(partial, bp));
+    err = __fadd_rn(err, e0);
+    acc = s;
+  } else {
+    acc = __fadd_rn(acc, partial);
   }
 }
 
-// C[M, N] = op(A[M, K] @ B[K, N]); A and B row-major with leading
-// dimensions lda and ldb, C contiguous with leading dimension ldc.
-template <int NBITS, int ES, bool COMP, bool EMIT>
-__global__ void __launch_bounds__(THREADS)
-posit_gemm_kernel(const int32_t *__restrict__ A, const int32_t *__restrict__ B,
-                  void *__restrict__ C, int M, int N, int K, int64_t lda,
-                  int64_t ldb, int64_t ldc, int kc, int negate) {
-  constexpr bool HAS_LO = NBITS > 16;    // lo == 0 for <= 16-bit formats
-  __shared__ float As_hi[BK][BM + 1];   // +1: conflict-free staging
-  __shared__ float Bs_hi[BK][BN];
-  __shared__ float As_lo[HAS_LO ? BK : 1][BM + 1];
-  __shared__ float Bs_lo[HAS_LO ? BK : 1][BN];
+// SINGLE: K fits one chunk (k_pad <= kc), so the only fold is the last,
+// done in the epilogue from acc = err = +0.
+template <int NBITS, int ES, bool COMP, bool SINGLE, bool EMIT>
+__global__ void __launch_bounds__(THREADS,
+                                  kMinBlocks<(NBITS > 16), COMP, SINGLE>)
+posit_gemm_kernel(const GemmArgs g) {
+  constexpr bool HAS_LO = NBITS > 16;
+  constexpr int NP = HAS_LO ? 2 : 1;       // planes staged per operand
+  constexpr int SA = BK * BM;              // floats of one A plane a stage
+  constexpr int SB = BK * BN;
+  constexpr int LO = HAS_LO ? TM : 1;      // px only with lo planes
+  constexpr int AM = SINGLE ? 1 : TM;      // acc only over several chunks
+  constexpr int EM = SINGLE || !COMP ? 1 : TM;
+  POSIT_DYNAMIC_SMEM(float, smem);
+  float *sa = smem;                        // [NSTAGE][NP][BK][BM]
+  float *sb = smem + NSTAGE * NP * SA;     // [NSTAGE][NP][BK][BN]
 
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+  const int tid = threadIdx.x;
+  const int tx = tid % 8, ty = tid / 8;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int nk = g.k_pad / BK;
 
-  float acc[4][4], err[4][4], ph[4][4], px[4][4];
+  auto load_stage = [&](int kt) {
+    const int slot = kt % NSTAGE;
+    const int64_t k0 = (int64_t)kt * BK;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      acc[i][j] = 0.0f; err[i][j] = 0.0f; ph[i][j] = 0.0f; px[i][j] = 0.0f;
-    }
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // Stage and decode one K tile: A tile BM x BK (K fastest, coalesced),
-    // B tile BK x BN (N fastest); out-of-range words read as posit zero.
-#pragma unroll
-    for (int t = 0; t < (BM * BK) / THREADS; ++t) {
-      const int l = threadIdx.x + t * THREADS;
-      const int r = l / BK, c = l % BK;
-      const int gr = row0 + r, gc = k0 + c;
-      const int32_t w = (gr < M && gc < K) ? A[gr * lda + gc] : 0;
-      float h, lo;
-      decode_split<NBITS, ES>(w, h, lo);
-      As_hi[c][r] = h;
-      if constexpr (HAS_LO) As_lo[c][r] = lo;
+    for (int t = 0; t < SA / 4 / THREADS; ++t) {
+      const int f = tid + t * THREADS;
+      const int r = f / (BM / 4), c = f % (BM / 4) * 4;
+      const bool ok = row0 + c < g.lda;
+      const int64_t off = ok ? (k0 + r) * g.lda + row0 + c : 0;
+      float *dst = sa + slot * NP * SA + r * BM + c;
+      cp_async16(dst, g.a_hi + off, ok);
+      if constexpr (HAS_LO) cp_async16(dst + SA, g.a_lo + off, ok);
     }
 #pragma unroll
-    for (int t = 0; t < (BK * BN) / THREADS; ++t) {
-      const int l = threadIdx.x + t * THREADS;
-      const int r = l / BN, c = l % BN;
-      const int gr = k0 + r, gc = col0 + c;
-      const int32_t w = (gr < K && gc < N) ? B[gr * ldb + gc] : 0;
-      float h, lo;
-      decode_split<NBITS, ES>(w, h, lo);
-      Bs_hi[r][c] = h;
-      if constexpr (HAS_LO) Bs_lo[r][c] = lo;
+    for (int t = 0; t < SB / 4 / THREADS; ++t) {
+      const int f = tid + t * THREADS;
+      const int r = f / (BN / 4), c = f % (BN / 4) * 4;
+      const bool ok = col0 + c < g.ldb;
+      const int64_t off = ok ? (k0 + r) * g.ldb + col0 + c : 0;
+      float *dst = sb + slot * NP * SB + r * BN + c;
+      cp_async16(dst, g.b_hi + off, ok);
+      if constexpr (HAS_LO) cp_async16(dst + SB, g.b_lo + off, ok);
     }
-    __syncthreads();
+  };
 
+  float ph[TM][TN], px[LO][HAS_LO ? TN : 1];
+  float acc[AM][SINGLE ? 1 : TN], err[EM][EM == 1 ? 1 : TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      ph[i][j] = 0.0f;
+      if constexpr (HAS_LO) px[i][j] = 0.0f;
+      if constexpr (!SINGLE) acc[i][j] = 0.0f;
+      if constexpr (!SINGLE && COMP) err[i][j] = 0.0f;
+    }
+
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nk) load_stage(s);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<NSTAGE - 2>();           // stage kt has landed (this thread)
+    __syncthreads();                       // ... for all; slot kt-1 is free
+    if (kt + NSTAGE - 1 < nk) load_stage(kt + NSTAGE - 1);
+    cp_async_commit();
+
+    const int slot = kt % NSTAGE;
+    const float *as = sa + slot * NP * SA + ty * 4;
+    const float *bs = sb + slot * NP * SB + tx * 4;
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float ah[4], bh[4], al[4], bl[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ah[i] = As_hi[kk][ty + 16 * i];
-        bh[i] = Bs_hi[kk][tx + 16 * i];
-        if constexpr (HAS_LO) {
-          al[i] = As_lo[kk][ty + 16 * i];
-          bl[i] = Bs_lo[kk][tx + 16 * i];
-        }
+      float ah[TM], bh[TN], al[TM], bl[TN];
+      load4(ah, as + kk * BM);
+      load4(ah + 4, as + kk * BM + 64);
+      load4(bh, bs + kk * BN);
+      if constexpr (HAS_LO) {
+        load4(al, as + SA + kk * BM);
+        load4(al + 4, as + SA + kk * BM + 64);
+        load4(bl, bs + SB + kk * BN);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < TN; ++j) {
           ph[i][j] = fmaf(ah[i], bh[j], ph[i][j]);
           if constexpr (HAS_LO) {
             px[i][j] = fmaf(ah[i], bl[j], px[i][j]);
@@ -151,79 +277,126 @@ posit_gemm_kernel(const int32_t *__restrict__ A, const int32_t *__restrict__ B,
           }
         }
     }
-    __syncthreads();
 
-    // End of a K chunk (every kc columns, and at the end of K): fold the
-    // chunk's partial into the accumulator, as one TPU grid step does.
-    const int k1 = k0 + BK;
-    if (k1 % kc == 0 || k1 >= K) {
+    if constexpr (!SINGLE) {
+      const int k1 = (kt + 1) * BK;        // end of a chunk, or of K
+      if (k1 % g.kc == 0 || k1 >= g.k) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float partial = __fadd_rn(ph[i][j], px[i][j]);
-          if constexpr (COMP) {                        // Knuth TwoSum
-            const float a0 = acc[i][j];
-            const float s = __fadd_rn(a0, partial);
-            const float bp = __fsub_rn(s, a0);
-            const float e0 = __fadd_rn(__fsub_rn(a0, __fsub_rn(s, bp)),
-                                       __fsub_rn(partial, bp));
-            err[i][j] = __fadd_rn(err[i][j], e0);
-            acc[i][j] = s;
-          } else {
-            acc[i][j] = __fadd_rn(acc[i][j], partial);
+          for (int j = 0; j < TN; ++j) {
+            float pxv = 0.0f, unused = 0.0f;
+            if constexpr (HAS_LO) pxv = px[i][j];
+            if constexpr (COMP) fold<true>(acc[i][j], err[i][j], ph[i][j], pxv);
+            else fold<false>(acc[i][j], unused, ph[i][j], pxv);
+            ph[i][j] = 0.0f;
+            if constexpr (HAS_LO) px[i][j] = 0.0f;
           }
-          ph[i][j] = 0.0f;
-          px[i][j] = 0.0f;
-        }
+      }
     }
   }
+  cp_async_wait<0>();
 
+  const bool vec = g.ldc % 4 == 0;         // 16-byte stores where aligned
+  const int gc = col0 + tx * 4;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gr = row0 + ty + 16 * i;
-    if (gr >= M) continue;
+  for (int i = 0; i < TM; ++i) {
+    const int gr = row0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (gr >= g.m) continue;
+    float v[TN];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gc = col0 + tx + 16 * j;
-      if (gc >= N) continue;
-      float val = COMP ? __fadd_rn(acc[i][j], err[i][j]) : acc[i][j];
-      if (negate) val = -val;                          // exact sign flip
-      if constexpr (EMIT) {
-        static_cast<int32_t *>(C)[gr * ldc + gc] = encode_posit<NBITS, ES>(val);
+    for (int j = 0; j < TN; ++j) {
+      float a0 = 0.0f, e0 = 0.0f;
+      if constexpr (SINGLE) {
+        float pxv = 0.0f;
+        if constexpr (HAS_LO) pxv = px[i][j];
+        fold<COMP>(a0, e0, ph[i][j], pxv);
       } else {
-        static_cast<float *>(C)[gr * ldc + gc] = val;
+        a0 = acc[i][j];
+        if constexpr (COMP) e0 = err[i][j];
+      }
+      v[j] = COMP ? __fadd_rn(a0, e0) : a0;
+      if (g.negate) v[j] = -v[j];                      // exact sign flip
+    }
+    if constexpr (EMIT) {
+      int32_t w[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) w[j] = encode_posit<NBITS, ES>(v[j]);
+      int32_t *out = static_cast<int32_t *>(g.c) + gr * g.ldc + gc;
+      if (vec && gc + 3 < g.n) {
+        *reinterpret_cast<int4 *>(out) = make_int4(w[0], w[1], w[2], w[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          if (gc + j < g.n) out[j] = w[j];
+      }
+    } else {
+      float *out = static_cast<float *>(g.c) + gr * g.ldc + gc;
+      if (vec && gc + 3 < g.n) {
+        *reinterpret_cast<float4 *>(out) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          if (gc + j < g.n) out[j] = v[j];
       }
     }
   }
 }
 
-template <int NBITS, int ES>
-cudaError_t launch_gemm(const int32_t *a, const int32_t *b, void *c, int m,
-                        int n, int k, int64_t lda, int64_t ldb, int64_t ldc,
-                        int compensated, int emit_posit, int negate, int kc,
-                        cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  const dim3 block(THREADS);
-  if (compensated && emit_posit)
-    posit_gemm_kernel<NBITS, ES, true, true><<<grid, block, 0, stream>>>(
-        a, b, c, m, n, k, lda, ldb, ldc, kc, negate);
-  else if (compensated)
-    posit_gemm_kernel<NBITS, ES, true, false><<<grid, block, 0, stream>>>(
-        a, b, c, m, n, k, lda, ldb, ldc, kc, negate);
-  else if (emit_posit)
-    posit_gemm_kernel<NBITS, ES, false, true><<<grid, block, 0, stream>>>(
-        a, b, c, m, n, k, lda, ldb, ldc, kc, negate);
-  else
-    posit_gemm_kernel<NBITS, ES, false, false><<<grid, block, 0, stream>>>(
-        a, b, c, m, n, k, lda, ldb, ldc, kc, negate);
+template <int NBITS, int ES, bool COMP, bool SINGLE, bool EMIT>
+cudaError_t launch_tiled(const GemmArgs &g, cudaStream_t s) {
+  constexpr int bytes = kSmemBytes<NBITS>;
+  // Once per device (not inside a CUDA graph capture after the first call).
+  static bool attr_set[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64 || !attr_set[dev]) {
+    e = cudaFuncSetAttribute(posit_gemm_kernel<NBITS, ES, COMP, SINGLE, EMIT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    if (dev >= 0 && dev < 64) attr_set[dev] = true;
+  }
+  const dim3 grid((g.n + BN - 1) / BN, (g.m + BM - 1) / BM);
+  POSIT_LAUNCH(grid, THREADS, bytes, s,
+               posit_gemm_kernel<NBITS, ES, COMP, SINGLE, EMIT>)(g);
   return cudaGetLastError();
 }
 
-// Grid of a grid-stride elementwise launch over n > 0 items.
-int grid_for(int64_t n) {
-  const int64_t g = (n + 255) / 256;
-  return (int)(g < (1 << 20) ? g : (1 << 20));
+// The f32-out kernel depends on the format only through its lo planes.
+template <int NBITS, int ES, bool COMP, bool SINGLE>
+cudaError_t launch_form(const GemmArgs &g, bool emit, cudaStream_t s) {
+  if (emit) return launch_tiled<NBITS, ES, COMP, SINGLE, true>(g, s);
+  if constexpr (NBITS > 16)
+    return launch_tiled<32, 2, COMP, SINGLE, false>(g, s);
+  else
+    return launch_tiled<16, 1, COMP, SINGLE, false>(g, s);
+}
+
+template <int NBITS, int ES>
+cudaError_t launch_gemm(const GemmArgs &g, bool comp, bool emit,
+                        cudaStream_t s) {
+  const bool single = g.k_pad <= g.kc;
+  if (comp)
+    return single ? launch_form<NBITS, ES, true, true>(g, emit, s)
+                  : launch_form<NBITS, ES, true, false>(g, emit, s);
+  return single ? launch_form<NBITS, ES, false, true>(g, emit, s)
+                : launch_form<NBITS, ES, false, false>(g, emit, s);
+}
+
+template <int NBITS, int ES>
+cudaError_t launch_planes(const PlaneArgs &p, cudaStream_t s) {
+  const int ld = p.lda > p.ldb ? p.lda : p.ldb;
+  const dim3 grid((ld + PT - 1) / PT, (p.k_pad + PT - 1) / PT, 2);
+  POSIT_LAUNCH(grid, 256, 0, s, decode_planes_kernel<NBITS, ES>)(p);
+  return cudaGetLastError();
+}
+
+bool plane_dims_ok(int m, int n, int k, int k_pad, int lda, int ldb) {
+  return m >= 0 && n >= 0 && k > 0 && k_pad == (k + BK - 1) / BK * BK &&
+         lda >= m && lda % 4 == 0 && ldb >= n && ldb % 4 == 0 &&
+         (k_pad + PT - 1) / PT <= 65535;
 }
 
 }  // namespace
@@ -231,59 +404,59 @@ int grid_for(int64_t n) {
 // Formats: 0 = p32e2, 1 = p16e1, 2 = p8e2, 3 = p8e0.  Every entry point
 // returns the cudaError_t of its launch (0 on success); 1001 flags an
 // unknown format, 1002 bad arguments.
-extern "C" int posit_gemm_launch(const void *a, const void *b, void *c, int m,
-                                 int n, int k, int64_t lda, int64_t ldb,
-                                 int64_t ldc, int fmt, int compensated,
-                                 int emit_posit, int negate, int kc,
-                                 void *stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || kc <= 0 || kc % BK != 0) return 1002;
-  const auto *pa = static_cast<const int32_t *>(a);
-  const auto *pb = static_cast<const int32_t *>(b);
+
+// Decode A[M, K] and B[K, N] (element strides sa0, sa1, sb0, sb1) into the
+// GEMM's planes: a_* is [k_pad, lda] (A transposed), b_* is [k_pad, ldb],
+// k_pad = K rounded up to 16, lda >= M and ldb >= N multiples of 4, zeros
+// beyond the operands.  a_lo and b_lo are not touched for <= 16-bit formats.
+extern "C" int posit_decode_planes_launch(
+    const void *a, const void *b, int m, int n, int k, int64_t sa0,
+    int64_t sa1, int64_t sb0, int64_t sb1, void *a_hi, void *a_lo,
+    void *b_hi, void *b_lo, int k_pad, int lda, int ldb, int fmt,
+    void *stream) {
+  if (!plane_dims_ok(m, n, k, k_pad, lda, ldb) || (lda == 0 && ldb == 0))
+    return 1002;
+  if (fmt == 0 && (a_lo == nullptr || b_lo == nullptr)) return 1002;
+  const PlaneArgs p{static_cast<const int32_t *>(a),
+                    static_cast<const int32_t *>(b), sa0, sa1, sb0, sb1,
+                    static_cast<float *>(a_hi), static_cast<float *>(a_lo),
+                    static_cast<float *>(b_hi), static_cast<float *>(b_lo),
+                    m, n, k, k_pad, lda, ldb};
   auto s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case 0: return launch_gemm<32, 2>(pa, pb, c, m, n, k, lda, ldb, ldc,
-                                      compensated, emit_posit, negate, kc, s);
-    case 1: return launch_gemm<16, 1>(pa, pb, c, m, n, k, lda, ldb, ldc,
-                                      compensated, emit_posit, negate, kc, s);
-    case 2: return launch_gemm<8, 2>(pa, pb, c, m, n, k, lda, ldb, ldc,
-                                     compensated, emit_posit, negate, kc, s);
-    case 3: return launch_gemm<8, 0>(pa, pb, c, m, n, k, lda, ldb, ldc,
-                                     compensated, emit_posit, negate, kc, s);
+    case 0: return launch_planes<32, 2>(p, s);
+    case 1: return launch_planes<16, 1>(p, s);
+    case 2: return launch_planes<8, 2>(p, s);
+    case 3: return launch_planes<8, 0>(p, s);
     default: return 1001;
   }
 }
 
-extern "C" int posit_decode_split_launch(const void *p, void *hi, void *lo,
-                                         int64_t n, int fmt, void *stream) {
-  if (n <= 0) return 1002;
-  const auto *pp = static_cast<const int32_t *>(p);
-  auto *h = static_cast<float *>(hi);
-  auto *l = static_cast<float *>(lo);
+// C[M, N] (leading dimension ldc) = ±(A @ B) from the planes of
+// posit_decode_planes_launch, K summed in chunks of kc (a multiple of 16);
+// f32 out, or posit words of format fmt when emit_posit.
+extern "C" int posit_gemm_launch(const void *a_hi, const void *a_lo,
+                                 const void *b_hi, const void *b_lo, void *c,
+                                 int m, int n, int k, int k_pad, int lda,
+                                 int ldb, int64_t ldc, int fmt,
+                                 int compensated, int emit_posit, int negate,
+                                 int kc, void *stream) {
+  if (m <= 0 || n <= 0 || !plane_dims_ok(m, n, k, k_pad, lda, ldb) ||
+      ldc < n || kc <= 0 || kc % BK != 0 || (m + BM - 1) / BM > 65535)
+    return 1002;
+  if (fmt == 0 && (a_lo == nullptr || b_lo == nullptr)) return 1002;
+  const GemmArgs g{static_cast<const float *>(a_hi),
+                   static_cast<const float *>(a_lo),
+                   static_cast<const float *>(b_hi),
+                   static_cast<const float *>(b_lo), c, m, n, k, k_pad, lda,
+                   ldb, ldc, kc, negate};
   auto s = static_cast<cudaStream_t>(stream);
-  const int g = grid_for(n);
+  const bool comp = compensated != 0, emit = emit_posit != 0;
   switch (fmt) {
-    case 0: decode_split_kernel<32, 2><<<g, 256, 0, s>>>(pp, h, l, n); break;
-    case 1: decode_split_kernel<16, 1><<<g, 256, 0, s>>>(pp, h, l, n); break;
-    case 2: decode_split_kernel<8, 2><<<g, 256, 0, s>>>(pp, h, l, n); break;
-    case 3: decode_split_kernel<8, 0><<<g, 256, 0, s>>>(pp, h, l, n); break;
+    case 0: return launch_gemm<32, 2>(g, comp, emit, s);
+    case 1: return launch_gemm<16, 1>(g, comp, emit, s);
+    case 2: return launch_gemm<8, 2>(g, comp, emit, s);
+    case 3: return launch_gemm<8, 0>(g, comp, emit, s);
     default: return 1001;
   }
-  return cudaGetLastError();
-}
-
-extern "C" int posit_encode_launch(const void *x, void *out, int64_t n,
-                                   int fmt, void *stream) {
-  if (n <= 0) return 1002;
-  const auto *px = static_cast<const float *>(x);
-  auto *po = static_cast<int32_t *>(out);
-  auto s = static_cast<cudaStream_t>(stream);
-  const int g = grid_for(n);
-  switch (fmt) {
-    case 0: encode_posit_kernel<32, 2><<<g, 256, 0, s>>>(px, po, n); break;
-    case 1: encode_posit_kernel<16, 1><<<g, 256, 0, s>>>(px, po, n); break;
-    case 2: encode_posit_kernel<8, 2><<<g, 256, 0, s>>>(px, po, n); break;
-    case 3: encode_posit_kernel<8, 0><<<g, 256, 0, s>>>(px, po, n); break;
-    default: return 1001;
-  }
-  return cudaGetLastError();
 }

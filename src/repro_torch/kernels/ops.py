@@ -6,8 +6,9 @@
 Backends, under the reference's names:
 
 * ``pallas_split3`` / ``pallas_split3_comp`` — in the port these names
-  mean the **Hopper CUDA kernel** (kernels/posit_gemm.py) for CUDA
-  tensors, and its plain PyTorch version for CPU tensors: f32
+  mean the **Hopper CUDA kernels** (kernels/posit_gemm.py: the decode
+  pre-pass, then the tiled GEMM) for CUDA tensors, and their plain
+  PyTorch version for CPU tensors: f32
   accumulators, one posit rounding.  For alpha in {1, -1} and beta = 0 the
   rounding is fused into the kernel's epilogue (int32 words straight off
   the kernel, alpha=-1 as an exact sign flip); other alpha/beta use the

@@ -1,4 +1,4 @@
-"""Posit GEMM via an exact hi/lo f32 split: Hopper kernel + plain versions.
+"""Posit GEMM via an exact hi/lo f32 split: Hopper kernels + plain versions.
 
 The counterpart of ``repro.kernels.posit_gemm`` (the Pallas TPU kernel).
 Each posit word decodes exactly to an f32 pair ``x = hi + lo`` (hi: the top
@@ -11,26 +11,35 @@ module docstring).
 
 Two implementations of every function live here:
 
-* the **CUDA kernels** (``csrc/posit_gemm.cu``, device functions in
-  ``csrc/posit_codec.cuh``), launched by the public wrappers for CUDA
-  tensors.  One kernel computes both GEMM entry points; the decode and
-  encode device functions also get elementwise kernels of their own so
-  they can be checked exhaustively on the card;
+* the **CUDA kernels** (``csrc/``), launched by the public wrappers for
+  CUDA tensors.  ``posit_gemm_f32`` and ``posit_gemm`` are two launches:
+  ``decode_planes``, which decodes each word of A and B once into f32
+  planes, then the tiled GEMM kernel on those planes (``csrc/posit_gemm.cu``).
+  ``posit_gemm_f32_simple`` / ``posit_gemm_simple`` launch the first
+  kernel (``csrc/posit_gemm_simple.cu``), kept as the yardstick whose bits
+  the tiled kernel must give; no study calls them.  The decode and encode
+  device functions also get elementwise kernels of their own
+  (``csrc/posit_codec.cu``) so they can be checked exhaustively on the
+  card;
 * the **plain PyTorch versions** (``*_plain``), which the wrappers use for
   CPU tensors and only for them.  They mirror the device functions op for
   op (bit-identical to the reference's ``decode_split_f32`` /
-  ``encode_posit_f32``) and emulate the kernel's tile dataflow for the
-  GEMM (bk-chunked hi/lo products with f32 accumulation, TwoSum for
-  ``_comp``).  Their f32 sums are ordered by the library's matmul, so the
-  GEMM is held to the reference's error bound, not to its bits.
+  ``encode_posit_f32``), lay the planes out as the pre-pass does, and
+  emulate the kernels' tile dataflow for the GEMM (bk-chunked hi/lo
+  products with f32 accumulation, TwoSum for ``_comp``).  Their f32 sums
+  are ordered by the library's matmul, so the GEMM is held to the
+  reference's error bound, not to its bits.
 
 For a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
-Unlike the TPU kernel, no shape needs padding: the kernel masks ragged
-edges, and the plain GEMM takes a short last K chunk, which gives the same
-sums as the reference's zero-padded one.
+Unlike the TPU kernel, no shape needs padding: the kernels mask ragged
+edges (the pre-pass pads its planes with zeros), and the plain GEMM takes
+a short last K chunk, which gives the same sums as the reference's
+zero-padded one.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +48,7 @@ from repro_torch.kernels import _build
 
 FMT_IDS = {"p32e2": 0, "p16e1": 1, "p8e2": 2, "p8e0": 3}
 KERNEL_BK = 16          # the kernel's K tile; bk must be a multiple of it
+PLANE_ALIGN = 4         # floats: the planes' leading dimensions are 16 bytes
 _NAN_BITS = 0x7FC00000
 
 MODES = ("split3", "split3_comp")
@@ -141,7 +151,7 @@ def encode_posit_f32_plain(x: torch.Tensor,
     return torch.where(is_nar, fmt.nar_pattern, out).to(torch.int32)
 
 
-def _check_gemm_args(a_p, b_p, bk, mode):
+def _check_operands(a_p, b_p):
     if a_p.dim() != 2 or b_p.dim() != 2 or a_p.shape[1] != b_p.shape[0]:
         raise ValueError(f"bad GEMM shapes {tuple(a_p.shape)} @ "
                          f"{tuple(b_p.shape)}")
@@ -150,6 +160,10 @@ def _check_gemm_args(a_p, b_p, bk, mode):
                         f"{b_p.dtype}")
     if a_p.device != b_p.device:
         raise ValueError(f"operands on {a_p.device} and {b_p.device}")
+
+
+def _check_gemm_args(a_p, b_p, bk, mode):
+    _check_operands(a_p, b_p)
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; known: {MODES}")
     if bk <= 0 or bk % KERNEL_BK:
@@ -192,6 +206,43 @@ def posit_gemm_plain(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
     return encode_posit_f32_plain(-acc if negate else acc, fmt)
 
 
+class Planes(NamedTuple):
+    """The decoded operands as the tiled GEMM kernel reads them: K-major
+    f32 planes, K padded to ``KERNEL_BK`` rows and the leading dimension
+    to ``PLANE_ALIGN`` floats, zeros beyond the operands.  The lo planes
+    are None for formats of <= 16 bits (they would be all zero)."""
+    a_hi: torch.Tensor                  # (k_pad, lda): A transposed
+    a_lo: torch.Tensor | None
+    b_hi: torch.Tensor                  # (k_pad, ldb)
+    b_lo: torch.Tensor | None
+
+
+def plane_layout(m: int, k: int, n: int) -> tuple[int, int, int]:
+    """(k_pad, lda, ldb) of the planes of an (m, k) @ (k, n) product."""
+    def up(x, q):
+        return -(-x // q) * q
+    return up(k, KERNEL_BK), up(m, PLANE_ALIGN), up(n, PLANE_ALIGN)
+
+
+def decode_planes_plain(a_p: torch.Tensor, b_p: torch.Tensor,
+                        fmt: PositFormat = P32E2) -> Planes:
+    """Plain version of the decode pre-pass: ``decode_split_f32_plain`` of
+    A (transposed) and B, laid out as ``Planes``."""
+    _check_operands(a_p, b_p)
+    m, k = a_p.shape
+    k_pad, lda, ldb = plane_layout(m, k, b_p.shape[1])
+
+    def plane(x, ld):
+        out = x.new_zeros((k_pad, ld))
+        out[:x.shape[0], :x.shape[1]] = x
+        return out
+    ah, al = decode_split_f32_plain(a_p, fmt)
+    bh, bl = decode_split_f32_plain(b_p, fmt)
+    lo = fmt.nbits > 16
+    return Planes(plane(ah.T, lda), plane(al.T, lda) if lo else None,
+                  plane(bh, ldb), plane(bl, ldb) if lo else None)
+
+
 # --------------------------------------------------------------------------
 # wrappers: kernel for CUDA tensors, plain version for CPU tensors
 # --------------------------------------------------------------------------
@@ -207,31 +258,89 @@ def _raise_on(rc: int, what: str):
 
 def _rows_unit_stride(t: torch.Tensor) -> torch.Tensor:
     """Row-major with unit column stride (any leading dimension), as the
-    kernel reads it; copies only when the layout is otherwise."""
+    simple kernel reads it; copies only when the layout is otherwise."""
     if t.stride(1) == 1 and t.stride(0) >= max(t.shape[1], 1):
         return t
     return t.contiguous()
 
 
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def decode_planes(a_p: torch.Tensor, b_p: torch.Tensor,
+                  fmt: PositFormat = P32E2) -> Planes:
+    """The GEMM's decode pre-pass: A and B (any strides) -> ``Planes``.
+
+    CUDA tensors: one launch decodes both operands; CPU tensors: the plain
+    version."""
+    _check_operands(a_p, b_p)
+    if not a_p.is_cuda:
+        return decode_planes_plain(a_p, b_p, fmt)
+    m, k = a_p.shape
+    n = b_p.shape[1]
+    k_pad, lda, ldb = plane_layout(m, k, n)
+    lo = fmt.nbits > 16
+
+    def plane(ld):
+        return torch.empty((k_pad, ld), dtype=torch.float32,
+                           device=a_p.device)
+    planes = Planes(plane(lda), plane(lda) if lo else None, plane(ldb),
+                    plane(ldb) if lo else None)
+    if k == 0 or lda + ldb == 0:
+        return planes
+    with torch.cuda.device(a_p.device):
+        rc = _build.lib().posit_decode_planes_launch(
+            a_p.data_ptr(), b_p.data_ptr(), m, n, k, *a_p.stride(),
+            *b_p.stride(), *map(_ptr, planes), k_pad, lda, ldb,
+            FMT_IDS[fmt.name], _stream(a_p))
+    _raise_on(rc, "decode_planes")
+    decode_planes.launches += 1
+    return planes
+
+
+def _gemm_out(a_p, b_p, emit_posit):
+    """The output of an (m, k) @ (k, n) launch; zeros (posit zero words)
+    when K is empty, where no kernel runs."""
+    shape = (a_p.shape[0], b_p.shape[1])
+    dtype = torch.int32 if emit_posit else torch.float32
+    if a_p.shape[1] == 0:
+        return torch.zeros(shape, device=a_p.device, dtype=dtype)
+    return torch.empty(shape, device=a_p.device, dtype=dtype)
+
+
 def _launch_gemm(a_p, b_p, *, bk, mode, emit_posit, negate, fmt):
+    out = _gemm_out(a_p, b_p, emit_posit)
+    if out.numel() == 0 or a_p.shape[1] == 0:
+        return out
+    planes = decode_planes(a_p, b_p, fmt)
+    (m, k), n = a_p.shape, b_p.shape[1]
+    with torch.cuda.device(a_p.device):
+        rc = _build.lib().posit_gemm_launch(
+            *map(_ptr, planes), out.data_ptr(), m, n, k,
+            *plane_layout(m, k, n), n, FMT_IDS[fmt.name],
+            int(mode == "split3_comp"), int(emit_posit), int(negate), bk,
+            _stream(a_p))
+    _raise_on(rc, "posit_gemm")
+    (posit_gemm if emit_posit else posit_gemm_f32).launches += 1
+    return out
+
+
+def _launch_simple(a_p, b_p, *, bk, mode, emit_posit, negate, fmt):
+    out = _gemm_out(a_p, b_p, emit_posit)
+    if out.numel() == 0 or a_p.shape[1] == 0:
+        return out
     a = _rows_unit_stride(a_p)
     b = _rows_unit_stride(b_p)
-    m, k = a.shape
-    n = b.shape[1]
-    out = torch.empty((m, n), device=a.device,
-                      dtype=torch.int32 if emit_posit else torch.float32)
-    if m == 0 or n == 0:
-        return out
-    if k == 0:
-        return out.zero_()
+    (m, k), n = a.shape, b.shape[1]
     with torch.cuda.device(a.device):
-        rc = _build.lib().posit_gemm_launch(
+        rc = _build.lib().posit_gemm_simple_launch(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
             a.stride(0), b.stride(0), n, FMT_IDS[fmt.name],
             int(mode == "split3_comp"), int(emit_posit), int(negate), bk,
             _stream(a))
-    _raise_on(rc, "posit_gemm")
-    (posit_gemm if emit_posit else posit_gemm_f32).launches += 1
+    _raise_on(rc, "posit_gemm_simple")
+    (posit_gemm_simple if emit_posit else posit_gemm_f32_simple).launches += 1
     return out
 
 
@@ -240,8 +349,9 @@ def posit_gemm_f32(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
                    fmt: PositFormat = P32E2) -> torch.Tensor:
     """(M,K) @ (K,N) over int32 posit words -> f32 accumulator.
 
-    CUDA tensors: the Hopper kernel (one launch); CPU tensors: the plain
-    version.  ``bk`` is the accumulation chunk (a multiple of 16)."""
+    CUDA tensors: the decode pre-pass and the tiled Hopper kernel (one
+    launch each); CPU tensors: the plain version.  ``bk`` is the
+    accumulation chunk (a multiple of 16)."""
     _check_gemm_args(a_p, b_p, bk, mode)
     if not a_p.is_cuda:
         return posit_gemm_f32_plain(a_p, b_p, bk=bk, mode=mode, fmt=fmt)
@@ -261,6 +371,30 @@ def posit_gemm(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
                                 fmt=fmt)
     return _launch_gemm(a_p, b_p, bk=bk, mode=mode, emit_posit=True,
                         negate=negate, fmt=fmt)
+
+
+def posit_gemm_f32_simple(a_p: torch.Tensor, b_p: torch.Tensor, *,
+                          bk: int = 128, mode: str = "split3",
+                          fmt: PositFormat = P32E2) -> torch.Tensor:
+    """``posit_gemm_f32`` on the first kernel (one launch, decoding in
+    every block): the yardstick of the tiled kernel's bits and time."""
+    _check_gemm_args(a_p, b_p, bk, mode)
+    if not a_p.is_cuda:
+        return posit_gemm_f32_plain(a_p, b_p, bk=bk, mode=mode, fmt=fmt)
+    return _launch_simple(a_p, b_p, bk=bk, mode=mode, emit_posit=False,
+                          negate=False, fmt=fmt)
+
+
+def posit_gemm_simple(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
+                      mode: str = "split3", negate: bool = False,
+                      fmt: PositFormat = P32E2) -> torch.Tensor:
+    """``posit_gemm`` on the first kernel (the yardstick)."""
+    _check_gemm_args(a_p, b_p, bk, mode)
+    if not a_p.is_cuda:
+        return posit_gemm_plain(a_p, b_p, bk=bk, mode=mode, negate=negate,
+                                fmt=fmt)
+    return _launch_simple(a_p, b_p, bk=bk, mode=mode, emit_posit=True,
+                          negate=negate, fmt=fmt)
 
 
 def decode_split_f32(p: torch.Tensor, fmt: PositFormat = P32E2):
@@ -314,8 +448,9 @@ def encode_p16_f32(x: torch.Tensor) -> torch.Tensor:
     return encode_posit_f32(x, P16E1)
 
 
-KERNEL_WRAPPERS = (posit_gemm_f32, posit_gemm, decode_split_f32,
-                   encode_posit_f32)
+KERNEL_WRAPPERS = (posit_gemm_f32, posit_gemm, decode_planes,
+                   decode_split_f32, encode_posit_f32, posit_gemm_f32_simple,
+                   posit_gemm_simple)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

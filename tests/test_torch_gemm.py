@@ -9,9 +9,14 @@
   bit-identical to encode(± its own f32 output).
 * ``rgemm``: ``faithful`` is bit-identical; ``xla_quire`` and split3 are
   held to the bound of tests/test_perf_paths.py.
-* The CUDA device functions (csrc/posit_codec.cuh) are built for the host
-  with g++ and checked against the plain versions; the kernels themselves
-  run only on a GPU (tests/test_torch_cuda.py).
+* The decode pre-pass's plain version lays the reference's decoded planes
+  out as the tiled kernel reads them.
+* The CUDA sources are built for the host with g++: the device functions
+  (csrc/posit_codec.cuh) are checked against the plain versions, and the
+  two GEMM kernels (csrc/posit_gemm.cu, csrc/posit_gemm_simple.cu) run on
+  the CPU through csrc/launch.cuh's emulation, where the tiled kernel
+  must give the simple kernel's bits.  On the card the kernels are
+  checked by tests/test_torch_cuda.py.
 """
 import ctypes
 import shutil
@@ -30,6 +35,7 @@ from repro.kernels import posit_gemm as JG
 from repro.kernels.ops import rgemm as j_rgemm
 from repro_torch.core import formats as TF
 from repro_torch.core import posit as TP
+from repro_torch.kernels import _build
 from repro_torch.kernels import posit_gemm as TG
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.ops import rgemm as t_rgemm
@@ -150,18 +156,82 @@ def test_plain_gemm_uses_lo_planes(mode, shape):
     assert ti.lo_plane_err(got, a, b) <= ti.LO_PLANE_LIMIT
 
 
-def test_gemm_wrapper_argument_checks():
+@pytest.mark.parametrize("wrapper", [TG.posit_gemm_f32, TG.posit_gemm,
+                                     TG.posit_gemm_f32_simple,
+                                     TG.posit_gemm_simple])
+def test_gemm_wrapper_argument_checks(wrapper):
     a = torch.zeros((4, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="multiple of 16"):
-        TG.posit_gemm_f32(a, a, bk=24)
+        wrapper(a, a, bk=24)
     with pytest.raises(ValueError, match="mode"):
-        TG.posit_gemm_f32(a, a, mode="split2")
+        wrapper(a, a, mode="split2")
     with pytest.raises(TypeError):
-        TG.posit_gemm_f32(a.float(), a)
+        wrapper(a.float(), a)
     with pytest.raises(ValueError, match="shapes"):
-        TG.posit_gemm_f32(a, torch.zeros((3, 4), dtype=torch.int32))
+        wrapper(a, torch.zeros((3, 4), dtype=torch.int32))
     counts = TG.launch_counts()
-    TG.posit_gemm_f32(a, a)                 # CPU: plain version, no launch
+    wrapper(a, a)                           # CPU: plain version, no launch
+    assert TG.launch_counts() == counts
+
+
+def test_simple_wrappers_are_the_plain_versions_on_cpu():
+    rng = np.random.default_rng(18)
+    a, b = _t(_posits(rng, (33, 40), -3, 3)), _t(_posits(rng, (40, 21), -3, 3))
+    for mode in TG.MODES:
+        assert torch.equal(TG.posit_gemm_f32_simple(a, b, bk=32, mode=mode),
+                           TG.posit_gemm_f32_plain(a, b, bk=32, mode=mode))
+        assert torch.equal(TG.posit_gemm_simple(a, b, mode=mode, negate=True),
+                           TG.posit_gemm_plain(a, b, mode=mode, negate=True))
+
+
+# --------------------------------------------------------------------------
+# the decode pre-pass's planes
+# --------------------------------------------------------------------------
+
+def test_plane_layout():
+    assert TG.plane_layout(4032, 64, 4032) == (64, 4032, 4032)
+    assert TG.plane_layout(65, 17, 130) == (32, 68, 132)
+    assert TG.plane_layout(1, 16, 3) == (16, 4, 4)
+    assert TG.plane_layout(0, 0, 0) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("name", FMTS)
+def test_decode_planes_plain_layout(name):
+    """A transposed and B, decoded as the reference decodes, K padded to
+    16 rows and the leading dimensions to 4 floats with zeros; no lo
+    planes for <= 16-bit formats.  Strided and transposed views too."""
+    fmt, jfmt = TF.FORMATS[name], JF.FORMATS[name]
+    rng = np.random.default_rng(19)
+    big = rng.choice(ti.words(fmt, rng, 1 << 16), (90, 90))
+    for a, b in ((big[:65, :17], big[17:34, :30]),
+                 (big[5:38, 3:68], big[20:29, 3:68].T)):
+        planes = TG.decode_planes(_t(a), _t(b), fmt)     # CPU: plain
+        (m, k), n = a.shape, b.shape[1]
+        k_pad, lda, ldb = TG.plane_layout(m, k, n)
+        assert (planes.a_lo is None) == (fmt.nbits <= 16)
+        ref = [np.asarray(x) for x in JG.decode_split_f32(jnp.asarray(a), jfmt)
+               + JG.decode_split_f32(jnp.asarray(b), jfmt)]
+        for got, want, ld in zip(planes, (ref[0].T, ref[1].T, ref[2], ref[3]),
+                                 (lda, lda, ldb, ldb)):
+            if got is None:
+                assert not want.any()
+                continue
+            assert got.shape == (k_pad, ld)
+            g = got.numpy()
+            assert np.array_equal(g[:want.shape[0], :want.shape[1]]
+                                  .view(np.int32), want.view(np.int32))
+            g[:want.shape[0], :want.shape[1]] = 0
+            assert not g.view(np.int32).any()
+
+
+def test_decode_planes_argument_checks():
+    a = torch.zeros((4, 4), dtype=torch.int32)
+    with pytest.raises(TypeError):
+        TG.decode_planes(a.float(), a)
+    with pytest.raises(ValueError, match="shapes"):
+        TG.decode_planes(a, torch.zeros((3, 4), dtype=torch.int32))
+    counts = TG.launch_counts()
+    TG.decode_planes(a, a)
     assert TG.launch_counts() == counts
 
 
@@ -328,3 +398,105 @@ def test_device_codec_source_matches_plain_on_host(tmp_path):
                                fid) == 0
         assert np.array_equal(out,
                               TG.encode_posit_f32_plain(_t(xb), fmt).numpy())
+
+
+@pytest.fixture(scope="module")
+def host_gemm_lib(tmp_path_factory):
+    """csrc/posit_gemm.cu and csrc/posit_gemm_simple.cu built for the host
+    with g++ (csrc/launch.cuh's emulation: each block's CUDA threads are
+    fibers that yield at __syncthreads()), with the kernel library's C
+    entry points."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ not available to build the kernels for the host")
+    out = tmp_path_factory.mktemp("host_gemm")
+    flags = ["-x", "c++", "-std=c++20", "-O1", "-fPIC", "-ffp-contract=off",
+             "-DPOSIT_CODEC_HOST", f"-I{CSRC}", "-Wall", "-Werror",
+             "-Wno-unknown-pragmas"]
+    objs = [out / f"{src}.o" for src in ("posit_gemm", "posit_gemm_simple")]
+    procs = [subprocess.Popen([gxx, *flags, "-c", "-o", str(obj),
+                               str(CSRC / f"{obj.stem}.cu")],
+                              stderr=subprocess.PIPE, text=True)
+             for obj in objs]
+    for p in procs:
+        assert p.wait(timeout=300) == 0, p.stderr.read()[-3000:]
+    lib_path = out / "libhost_gemm.so"
+    subprocess.run([gxx, "-shared", "-o", str(lib_path), *map(str, objs)],
+                   check=True, timeout=120)
+    return _build.bind(ctypes.CDLL(str(lib_path)))
+
+
+def _np_ptr(x):
+    return None if x is None else x.ctypes.data
+
+
+def _host_tiled(lib, a, b, fmt, kc, mode, emit, negate):
+    """The pre-pass and the tiled kernel on numpy operands (any strides)."""
+    (m, k), n = a.shape, b.shape[1]
+    k_pad, lda, ldb = TG.plane_layout(m, k, n)
+    lo = fmt.nbits > 16
+    planes = [np.full((k_pad, ld), np.nan, np.float32) if lo or i % 2 == 0
+              else None for i, ld in enumerate((lda, lda, ldb, ldb))]
+    assert lib.posit_decode_planes_launch(
+        _np_ptr(a), _np_ptr(b), m, n, k, *(s // 4 for s in a.strides),
+        *(s // 4 for s in b.strides), *map(_np_ptr, planes), k_pad, lda,
+        ldb, TG.FMT_IDS[fmt.name], None) == 0
+    out = np.full((m, n), -1, np.int32 if emit else np.float32)
+    assert lib.posit_gemm_launch(
+        *map(_np_ptr, planes), out.ctypes.data, m, n, k, k_pad, lda, ldb, n,
+        TG.FMT_IDS[fmt.name], int(mode == "split3_comp"), int(emit),
+        int(negate), kc, None) == 0
+    return out, planes
+
+
+def _host_simple(lib, a, b, fmt, kc, mode, emit, negate):
+    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+    (m, k), n = a.shape, b.shape[1]
+    out = np.full((m, n), -1, np.int32 if emit else np.float32)
+    assert lib.posit_gemm_simple_launch(
+        a.ctypes.data, b.ctypes.data, out.ctypes.data, m, n, k, k, n, n,
+        TG.FMT_IDS[fmt.name], int(mode == "split3_comp"), int(emit),
+        int(negate), kc, None) == 0
+    return out
+
+
+@pytest.mark.parametrize("name", FMTS)
+def test_tiled_kernel_source_bit_identical_to_simple_on_host(host_gemm_lib,
+                                                            name):
+    """The tiled kernel's source (pre-pass, cp.async ring, 8x8 / 8x4
+    register tiles, folds at every kc, masked epilogue), run on the host,
+    gives the simple kernel's bits: ragged shapes, several K chunks, both
+    modes, f32 and fused ±encode, a NaR word, strided and transposed
+    views; and its planes are the plain version's."""
+    fmt = TF.FORMATS[name]
+    rng = np.random.default_rng(20)
+    lib = host_gemm_lib
+    cases = []
+    for (m, k, n) in ((65, 17, 130), (33, 65, 9), (40, 300, 70)):
+        a = _posits(rng, (m, k), -4, 4, name)
+        b = _posits(rng, (k, n), -4, 4, name)
+        a[0, 0] = fmt.nar_pattern
+        cases += [(a, b, kc) for kc in (16, 48, 128)]
+    big = _posits(rng, (200, 200), -2, 2, name)
+    cases += [(big[70:, 3:67], big[3:67, 70:], 128),
+              (big[70:, 3:67], big[70:170, 3:67].T, 32)]
+    if name == "p32e2":                 # where the lo planes decide
+        cases += [(*(x.numpy() for x in ti.lo_plane_operands(rng, *shape)),
+                   16) for shape in ti.LO_PLANE_SHAPES]
+    a, b = ti.cancelling_operands(rng, 37, 96, 41, fmt)
+    cases += [(a.numpy(), b.numpy(), kc) for kc in (32, 128)]
+    for a, b, kc in cases:
+        _, planes = _host_tiled(lib, a, b, fmt, kc, "split3", False, False)
+        for got, want in zip(planes, TG.decode_planes_plain(_t(a), _t(b),
+                                                            fmt)):
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert np.array_equal(got.view(np.int32),
+                                      want.numpy().view(np.int32))
+        for mode in TG.MODES:
+            for emit, negate in ((False, False), (True, False), (True, True)):
+                got, _ = _host_tiled(lib, a, b, fmt, kc, mode, emit, negate)
+                want = _host_simple(lib, a, b, fmt, kc, mode, emit, negate)
+                assert np.array_equal(got.view(np.int32),
+                                      want.view(np.int32)), \
+                    (a.shape, b.shape, kc, mode, emit, negate)

@@ -106,3 +106,15 @@ def hi_only_product(a, b) -> torch.Tensor:
     ah, _ = pg.decode_split_f32_plain(a)
     bh, _ = pg.decode_split_f32_plain(b)
     return (ah.double() @ bh.double()).float()
+
+
+def cancelling_operands(rng, m, k, n, fmt: PositFormat = P32E2,
+                        device="cpu"):
+    """Operands whose exact product is zero (columns 2i and 2i+1 of A are
+    both a_i, rows 2i and 2i+1 of B are b_i and -b_i; k even), so every
+    f32 output is the residue of the kernel's roundings, which reordering
+    any product or fold would change."""
+    a = posits(rng, (m, k // 2), -4, 4, fmt).repeat_interleave(2, dim=1)
+    half = posits(rng, (k // 2, n), -4, 4, fmt)
+    b = torch.stack([half, -half], dim=1).reshape(k, n)
+    return a.to(device), b.to(device)
