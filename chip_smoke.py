@@ -9,14 +9,22 @@ kernel against its plain PyTorch version and the tiled GEMM kernel against
 the first (simple) kernel bit for bit, drives the paper's §5.1 path
 (posit LU and Cholesky with every trailing update on the decode pre-pass
 and the tiled GEMM kernel, triangular solves, backward error against
-binary32) at full size, and times the kernels: the tiled kernel and the
-simple one interleaved, the pre-pass, the f32 and f64 ``torch.matmul``
-yardsticks, and the whole ``rgemm`` trailing-update call.  Every phase raises on a failed check, so the
-script exits non-zero unless all of them pass.  The last line of standard
+binary32) at full size, holds the quire (``quire_dot``, ``quire_gemm``,
+``rgemm(backend="quire_exact")``, ``q_to_posit``) on the card to its CPU
+words, drives the quire-exact refinement path (``refinement_study`` LU
+and Cholesky, ``mixed_precision_study`` with its p16e1 factorization, the
+mixed-precision acceptance cells) with every trailing update on the
+kernel, holds the four refinement drivers' pair words on the card to the
+CPU's, and times the kernels: the tiled kernel and the simple one
+interleaved, the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks,
+the whole ``rgemm`` trailing-update call and its ``quire_exact`` form.
+Every phase raises on a failed check, so the script exits non-zero unless
+all of them pass.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it carries
 the card's name and power limit as ``nvidia-smi`` reports them, and the
-line before that the per-kernel JSON (launches on the main path, error,
-times and bound).
+line before that the per-kernel JSON (``launches`` on the §5.1 path,
+``launches_by_path`` adding the refinement path's, each counted from zero
+around its own run; error, times and bound).
 
 It imports nothing of JAX or of the JAX package ``repro``, and needs one
 CUDA device; without one it exits with code 2 and prints no result.
@@ -42,10 +50,29 @@ PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_LU = dict(n=4096, sigma=1.0, algo="lu", nb=64)
 MAIN_CHOL = dict(n=1024, sigma=1.0, algo="cholesky", nb=64)
+# The refinement path: quire refinement of an LU and of the main Cholesky
+# cell, and the mixed-precision study (p16e1 factor, p32e2 refinement) at
+# the Cholesky cell's size.  The LU cell is cut from the main cell's
+# n=4096 to 1024: its quire sweeps are host-bound, a few hundred small
+# launches a row (PERF.md §5), and at 2048 the whole script took 1017 s
+# of its 1200 s limit on an H100.
+REFINE_LU = dict(n=1024, sigma=1.0, algo="lu", nb=64, iters=3)
+REFINE_CHOL = dict(n=1024, sigma=1.0, algo="cholesky", nb=64, iters=3)
+MIXED = dict(n=1024, sigma=1.0, algo="lu", nb=64)
+# The reference's mixed-precision acceptance cells
+# (benchmarks/bench_formats.py bench_mixed, tests/test_formats.py).
+MP_CELLS = (("lu", 64, 1e-2), ("lu", 64, 1.0), ("lu", 64, 1e2),
+            ("cholesky", 48, 1.0))
+QUIRE_SHAPES = ((17, 23, 9), (65, 130, 33), (256, 64, 256))
+# The refinement drivers held to the CPU's pair words: (driver, n); n=64
+# (two panels at the drivers' nb=32) for the time limit, as above.
+PARITY_DRIVERS = (("rgesv_ir", 64), ("rposv_ir", 64), ("rgesv_mp", 64),
+                  ("rposv_mp", 48))
 GEMM_SHAPES = ((65, 17, 130), (33, 65, 9), (4032, 64, 4032), (64, 64, 64))
 IDENTITY_SHAPES = ((65, 17, 130), (33, 65, 9), (257, 300, 129),
                    (4032, 64, 4032))
 TIMED_SHAPE = (4032, 64, 4032)      # the n=4096 LU's first trailing update
+MIXED_SHAPE = (960, 64, 960)        # the n=1024 studies' first update
 # The tiled kernel's instantiations on the main path (p32e2, split3, one K
 # chunk; f32 out and fused encode): ptxas must report no spills for them.
 MAIN_PATH_KERNELS = ("posit_gemm_kernel<32,2,0,1,0>",
@@ -359,34 +386,57 @@ def phase_bit_identity(dev):
 
 class StageTimer:
     """Wall time by stage of the posit path: wraps the functions the
-    drivers call (panels, trsm, GEMM, solves), synchronising around each
-    call so the time lands on the stage that queued the work."""
+    drivers call (panels, trsm, GEMM, solves, the quire residual),
+    synchronising around each call so the time lands on the stage that
+    queued the work.  A solve called with ``quire=True`` is a "quire
+    solve".  Around every ``rgemm`` of a factorization it also counts the
+    GEMM kernel's launches, by posit format."""
 
     STAGES = {"panel": [("decomp", "getf2"), ("decomp", "potf2")],
               "trsm": [("decomp", "rtrsm_left_lower"),
                        ("decomp", "rtrsm_right_lowerT")],
               "gemm": [("decomp", "rgemm")],
-              "solve": [("solve", "rgetrs"), ("solve", "rpotrs")]}
+              "solve": [("solve", "rgetrs"), ("solve", "rpotrs")],
+              "quire residual": [("refine", "residual_quire")]}
 
     def __init__(self):
-        from repro_torch.lapack import decomp, solve
-        self.mods = {"decomp": decomp, "solve": solve}
-        self.secs = {}
+        from repro_torch.lapack import decomp, refine, solve
+        self.mods = {"decomp": decomp, "solve": solve, "refine": refine}
+        self.secs = {stage: 0.0 for stage in
+                     ("panel", "trsm", "gemm", "solve", "quire solve",
+                      "quire residual")}
+        self.gemm = {}              # fmt -> rgemm calls and kernel launches
         self.saved = []
+
+    def _count_gemm(self, fn, *a, **kw):
+        from repro_torch.kernels import posit_gemm as pg
+        before = pg.launch_counts()
+        out = fn(*a, **kw)
+        after = pg.launch_counts()
+        row = self.gemm.setdefault(kw["fmt"].name, dict.fromkeys(
+            ["rgemm_calls"] + list(after), 0))
+        row["rgemm_calls"] += 1
+        for name in after:
+            row[name] += after[name] - before[name]
+        return out
 
     def __enter__(self):
         import torch
         for stage, targets in self.STAGES.items():
-            self.secs[stage] = 0.0
             for mod_name, fn_name in targets:
                 mod = self.mods[mod_name]
                 fn = getattr(mod, fn_name)
                 self.saved.append((mod, fn_name, fn))
 
                 def timed(*a, _fn=fn, _stage=stage, **kw):
+                    if _stage == "solve" and kw.get("quire"):
+                        _stage = "quire solve"
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    out = _fn(*a, **kw)
+                    if _stage == "gemm":
+                        out = self._count_gemm(_fn, *a, **kw)
+                    else:
+                        out = _fn(*a, **kw)
                     torch.cuda.synchronize()
                     self.secs[_stage] += time.perf_counter() - t0
                     return out
@@ -399,24 +449,27 @@ class StageTimer:
         return False
 
 
-def run_study(cfg, backend, dev, timed=False):
+def run_study(cfg, backend, dev, timed=False, study=None):
+    """One study cell (``backward_error_study`` unless named): (result,
+    wall seconds, stage seconds or None, GEMM launches by format or
+    None)."""
     import torch
     from repro_torch.lapack.error_eval import backward_error_study
+    study = study or backward_error_study
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     if timed:
         with StageTimer() as st:
-            res = backward_error_study(gemm_backend=backend, device=dev,
-                                       **cfg)
-        stages = dict(st.secs)
+            res = study(gemm_backend=backend, device=dev, **cfg)
+        stages, gemm = {k: v for k, v in st.secs.items() if v}, st.gemm
     else:
-        res = backward_error_study(gemm_backend=backend, device=dev, **cfg)
-        stages = None
+        res = study(gemm_backend=backend, device=dev, **cfg)
+        stages = gemm = None
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if stages is not None:
         stages["other"] = wall - sum(stages.values())
-    return res, wall, stages
+    return res, wall, stages, gemm
 
 
 def phase_main_path(dev, smi):
@@ -430,7 +483,8 @@ def phase_main_path(dev, smi):
     pg.reset_launch_counts()
     for cfg in (MAIN_LU, MAIN_CHOL):
         before = pg.launch_counts()
-        res, wall, stages = run_study(cfg, "pallas_split3", dev, timed=True)
+        res, wall, stages, _ = run_study(cfg, "pallas_split3", dev,
+                                         timed=True)
         after = pg.launch_counts()
         launches = after["posit_gemm_f32"] - before["posit_gemm_f32"]
         prepass = after["decode_planes"] - before["decode_planes"]
@@ -494,7 +548,7 @@ def phase_reference_backend(dev, report):
     kernel's e_posit must lie within 0.5 decimal digits."""
     import math
     for cfg in (MAIN_LU, MAIN_CHOL):
-        res, wall, _ = run_study(cfg, "xla_quire", dev)
+        res, wall, _, _ = run_study(cfg, "xla_quire", dev)
         mine = report[cfg["algo"]]["e_posit"]
         gap = abs(math.log10(mine / res.e_posit))
         check(gap < 0.5, f"{cfg['algo']}: e_posit {mine} vs xla_quire "
@@ -520,6 +574,202 @@ def phase_word_parity(dev):
               f"{c.e_posit!r}")
         say(f"[parity] {algo} n=128 faithful: e_posit {g.e_posit!r} "
             "bit-identical on GPU and CPU")
+
+
+def phase_quire(dev, smi):
+    """The quire on the card gives the CPU's words: quire_dot (every
+    chunking), quire_gemm and rgemm(quire_exact) in every format at ragged
+    shapes and (256, 64, 256), and q_to_posit of limbs carried across
+    from the CPU through interop; then rgemm(alpha=-1, beta=1,
+    quire_exact) once at the LU's first trailing-update shape, with its
+    host-clock time and peak device memory."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch import quire as Q
+    from repro_torch.core.formats import FORMATS, P32E2
+    from repro_torch.kernels.ops import rgemm
+    import torch_inputs as ti
+    rng = np.random.default_rng(25)
+    for fmt in FORMATS.values():
+        span = 20 if fmt.nbits > 8 else 4
+        for (m, k, n) in QUIRE_SHAPES:
+            a = ti.posits(rng, (m, k), -span, span, fmt)
+            b = ti.posits(rng, (k, n), -span, span, fmt)
+            c = ti.posits(rng, (m, n), -4, 4, fmt)
+            a[0, 0] = fmt.nar_pattern
+            ag, bg, cg = a.to(dev), b.to(dev), c.to(dev)
+            # the CPU's chunkings agree (tests/test_torch_quire.py): one
+            # CPU run is the yardstick of every chunking on the card
+            want = Q.quire_dot(a[:, None, :], b.T[None, :, :], fmt,
+                               init_p=c, negate=True)
+            for kc in (None, 7, k):
+                got = Q.quire_dot(ag[:, None, :], bg.T[None, :, :], fmt,
+                                  init_p=cg, negate=True, kc=kc)
+                check(same_bits(got, want), f"quire_dot {fmt.name} "
+                      f"{(m, k, n)} kc={kc}: GPU != CPU")
+            check(same_bits(Q.quire_gemm(ag, bg, cg, fmt, negate=True),
+                            Q.quire_gemm(a, b, c, fmt, negate=True)),
+                  f"quire_gemm {fmt.name} {(m, k, n)}: GPU != CPU")
+            for alpha, beta in ((-1.0, 1.0), (2.0, -0.5)):
+                check(same_bits(
+                    rgemm(ag, bg, cg, alpha=alpha, beta=beta,
+                          backend="quire_exact", fmt=fmt),
+                    rgemm(a, b, c, alpha=alpha, beta=beta,
+                          backend="quire_exact", fmt=fmt)),
+                      f"rgemm quire_exact {fmt.name} {(m, k, n)} "
+                      f"alpha={alpha} beta={beta}: GPU != CPU")
+            limbs, nar = Q.quire_gemm_limbs(a, b, fmt, negate=True)
+            q = interop.quire_to_torch(*interop.quire_to_numpy(
+                Q.Quire(limbs, nar)), device=dev)
+            check(same_bits(Q.q_to_posit(q, fmt),
+                            Q.q_to_posit(Q.Quire(limbs, nar), fmt)),
+                  f"q_to_posit {fmt.name} {(m, k, n)}: GPU != CPU")
+        say(f"[quire] {fmt.name}: quire_dot (kc None/7/K), quire_gemm, "
+            "rgemm quire_exact (alpha,beta) = (-1,1), (2,-0.5) and "
+            f"q_to_posit of carried limbs at {len(QUIRE_SHAPES)} shapes: "
+            "GPU words == CPU words")
+    m, k, n = TIMED_SHAPE
+    a = ti.posits(rng, (m, k), -4, 4, P32E2, dev)
+    b = ti.posits(rng, (k, n), -4, 4, P32E2, dev)
+    c = ti.posits(rng, (m, n), -2, 2, P32E2, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    out = rgemm(a, b, c, alpha=-1.0, beta=1.0, backend="quire_exact")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    check(tuple(out.shape) == (m, n) and not bool(
+        (out == P32E2.nar_pattern).any()), "quire_exact rgemm: NaR or shape")
+    split3 = rgemm(a, b, c, alpha=-1.0, beta=1.0, backend="pallas_split3")
+    agree = float((out == split3).double().mean())
+    say(f"[quire] rgemm(alpha=-1, beta=1, quire_exact) {(m, k, n)}: "
+        f"{secs * 1e3:.1f} ms on the host clock (one call, first use), "
+        f"peak device memory {peak / 2**30:.2f} GiB above the operands; "
+        f"{100 * agree:.2f} % of its words equal pallas_split3's [{smi}]")
+    return dict(shape=[m, k, n], host_ms=secs * 1e3, peak_bytes=peak,
+                words_equal_split3=agree)
+
+
+def phase_refine(dev, smi):
+    """The quire-exact refinement path at full size, every trailing
+    update on the kernel: refinement_study LU and Cholesky, and
+    mixed_precision_study (p32e2 and p16e1 factorizations).  The launch
+    counts are reset just before and read just after: they are this
+    path's own."""
+    import math
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.lapack.error_eval import (mixed_precision_study,
+                                               refinement_study)
+    report = {}
+    pg.reset_launch_counts()
+    for label, cfg, study, formats in (
+            ("refine lu", REFINE_LU, refinement_study, ("p32e2",)),
+            ("refine cholesky", REFINE_CHOL, refinement_study, ("p32e2",)),
+            ("mixed lu", MIXED, mixed_precision_study, ("p32e2", "p16e1"))):
+        res, wall, stages, gemm = run_study(cfg, "pallas_split3", dev,
+                                            timed=True, study=study)
+        expect = math.ceil(cfg["n"] / cfg["nb"]) - 1
+        for fmt_name in formats:
+            row = gemm.get(fmt_name, {})
+            check(row.get("rgemm_calls") == row.get("posit_gemm_f32")
+                  == row.get("decode_planes") == expect,
+                  f"{label} n={cfg['n']} {fmt_name}: {row}, expected "
+                  f"{expect} trailing updates, each one GEMM and one "
+                  "pre-pass launch")
+            check(row["posit_gemm_f32_simple"] == row["posit_gemm_simple"]
+                  == row["posit_gemm"] == 0,
+                  f"{label} {fmt_name}: other GEMM kernels launched: {row}")
+        check(sorted(gemm) == sorted(formats),
+              f"{label}: GEMMs in formats {sorted(gemm)}")
+        if study is refinement_study:
+            errs = dict(e_plain=res.e_plain, e_ir=res.e_ir,
+                        digits_gained=res.digits_gained)
+            check(math.isfinite(res.e_ir) and math.isfinite(res.e_plain),
+                  f"{label}: {res}")
+            check(res.digits_gained >= 2.0,
+                  f"{label}: refinement gained {res.digits_gained:.3f} "
+                  "digits, below the reference's bar of 2")
+        else:
+            errs = dict(e_ir=res.e_ir, e_mp=res.e_mp,
+                        digits_lost=res.digits_lost)
+            check(math.isfinite(res.e_ir) and math.isfinite(res.e_mp),
+                  f"{label}: {res}")
+        say(f"[refine] {label} n={cfg['n']} nb={cfg['nb']} pallas_split3: "
+            + " ".join(f"{k} {v!r}" for k, v in errs.items())
+            + f"; GEMM launches "
+            + ", ".join(f"{f} {gemm[f]['posit_gemm_f32']}" for f in formats)
+            + f" (one per trailing update); wall {wall:.2f} s "
+            + " ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+            + f" [{smi}]")
+        report[label] = dict(n=cfg["n"], nb=cfg["nb"], wall_s=wall,
+                             stages_s=stages, gemm=gemm, **errs)
+    counts = pg.launch_counts()
+    say(f"[refine] launches on the refinement path: {json.dumps(counts)}")
+    check(counts["posit_gemm_f32_simple"] == counts["posit_gemm_simple"] == 0,
+          "the simple kernel was launched on the refinement path")
+    return report, counts
+
+
+def phase_mp_cells(dev, smi):
+    """The reference's mixed-precision acceptance cells with the kernel:
+    the p16e1-factor drivers lose under half a digit to the full-width
+    ones."""
+    from repro_torch.lapack.error_eval import mixed_precision_study
+    out = []
+    for algo, n, sigma in MP_CELLS:
+        t0 = time.perf_counter()
+        r = mixed_precision_study(n, sigma, algo, nb=16,
+                                  gemm_backend="pallas_split3", device=dev)
+        wall = time.perf_counter() - t0
+        check(r.digits_lost < 0.5, f"mp {algo} n={n} sigma={sigma}: "
+              f"digits lost {r.digits_lost:.3f} >= 0.5 ({r})")
+        say(f"[mp] {algo} n={n} sigma={sigma:g} nb=16 pallas_split3: e_ir "
+            f"{r.e_ir!r} e_mp {r.e_mp!r} digits lost {r.digits_lost:.4f} "
+            f"(< 0.5); wall {wall:.2f} s [{smi}]")
+        out.append(dict(algo=algo, n=n, sigma=sigma, e_ir=r.e_ir,
+                        e_mp=r.e_mp, digits_lost=r.digits_lost,
+                        wall_s=wall))
+    return out
+
+
+def phase_refine_parity(dev):
+    """The four refinement drivers with the faithful and quire_exact
+    GEMMs: pair words and factors on the card equal the CPU's, bit for
+    bit (integer and separately rounded f64 ops only)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import posit
+    from repro_torch.lapack import refine
+    from repro_torch.lapack.error_eval import make_general, make_spd
+    for name, n in PARITY_DRIVERS:
+        make = make_spd if name.startswith("rposv") else make_general
+        a64 = make(n, 1.0, 0)                    # the §5.1 studies' cell
+        a = posit.from_float64(torch.from_numpy(a64))
+        b = posit.from_float64(torch.from_numpy(
+            a64 @ np.full(n, 1.0 / np.sqrt(n))))
+        for backend in ("faithful", "quire_exact"):
+            t0 = time.perf_counter()
+            (hg, lg), fg = getattr(refine, name)(a.to(dev), b.to(dev),
+                                                 gemm_backend=backend)
+            torch.cuda.synchronize()
+            t_gpu = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            (hc, lc), fc = getattr(refine, name)(a, b, gemm_backend=backend)
+            t_cpu = time.perf_counter() - t0
+            fg = fg if isinstance(fg, tuple) else (fg,)
+            fc = fc if isinstance(fc, tuple) else (fc,)
+            check(same_bits(hg, hc) and same_bits(lg, lc),
+                  f"{name} n={n} {backend}: pair words GPU != CPU")
+            check(all(same_bits(g, c) for g, c in zip(fg, fc)),
+                  f"{name} n={n} {backend}: factors GPU != CPU")
+            check(bool(lc.any()), f"{name} n={n} {backend}: x_lo all zero, "
+                  "the pair carries nothing below x_hi")
+            say(f"[parity] {name} n={n} {backend}: x_hi, x_lo and factors "
+                f"bit-identical on GPU and CPU (GPU {t_gpu:.2f} s, CPU "
+                f"{t_cpu:.2f} s)")
 
 
 def interleaved_ms(first, second, reps: int = 20):
@@ -675,6 +925,36 @@ def phase_timings(dev, worst, smi):
             f"FFMA at {flops_rate / 1e12:.0f} TFLOP/s): "
             f"{2.0 * m * k * n / flops_rate * 1e3:.4f} ms")
 
+    # The mixed study's first trailing update (n=1024, nb=64): its p16e1
+    # factorization and its p32e2 one.
+    m2, k2, n2 = MIXED_SHAPE
+    for fmt in (P16E1, P32E2):
+        a = ti.posits(rng, (m2, k2), -4, 4, fmt, dev)
+        b = ti.posits(rng, (k2, n2), -4, 4, fmt, dev)
+        flops = (6.0 if fmt.nbits > 16 else 2.0) * m2 * k2 * n2
+        nbytes = 4.0 * (m2 * k2 + k2 * n2 + m2 * n2)
+        bound_ms = max(flops / flops_rate, nbytes / bytes_rate) * 1e3
+        kernel_ms = graph_ms(lambda: pg.posit_gemm_f32(a, b, fmt=fmt), 20)
+        ah, al = pg.decode_split_f32_plain(a, fmt)
+        bh, bl = pg.decode_split_f32_plain(b, fmt)
+        a32, b32 = ah + al, bh + bl
+        a64, b64 = posit.to_float64(a, fmt), posit.to_float64(b, fmt)
+        f32_ms = cuda_ms(lambda: torch.matmul(a32, b32), 20)
+        f64_ms = cuda_ms(lambda: torch.matmul(a64, b64), 20)
+        plain_ms = cuda_ms(lambda: pg.posit_gemm_f32_plain(a, b, fmt=fmt),
+                           5)
+        by = ("operations" if flops / flops_rate >= nbytes / bytes_rate
+              else "bytes")
+        extra[f"mixed_{fmt.name}"] = dict(
+            shape=[m2, k2, n2], kernel_ms=kernel_ms, bound_ms=bound_ms,
+            bound_by=by, plain_ms=plain_ms, matmul_f32_ms=f32_ms,
+            matmul_f64_ms=f64_ms)
+        say(f"[time] {fmt.name} split3 f32 {(m2, k2, n2)} (the mixed "
+            f"study's first update): kernel {kernel_ms:.4f} ms (pre-pass + "
+            f"GEMM, CUDA graph), bound {bound_ms:.4f} ms ({by}), plain "
+            f"{plain_ms:.4f} ms, torch.matmul f32 {f32_ms:.4f} / f64 "
+            f"{f64_ms:.4f} ms [{smi}]")
+
     words = torch.from_numpy(ti.words(P32E2, rng, 1 << 24)).to(dev)
     nw = words.numel()
     vals = torch.randn(nw, device=dev) * 100.0
@@ -745,13 +1025,22 @@ def main(argv=None) -> int:
     phase_fused_rgemm(dev)
     phase_reference_backend(dev, report)
     phase_word_parity(dev)
+    quire = phase_quire(dev, smi)
+    refine_report, refine_counts = phase_refine(dev, smi)
+    mp_cells = phase_mp_cells(dev, smi)
+    phase_refine_parity(dev)
     rows, grid, extra = phase_timings(dev, worst, smi)
 
     for name in ON_MAIN_PATH:
         check(counts[name] > 0, f"{name} was not launched on the main path")
+        check(refine_counts[name] > 0,
+              f"{name} was not launched on the refinement path")
     src = "src/repro_torch/kernels/csrc/"
     kernels = [dict(name=name, route="cuda", source=src + SOURCES[name],
-                    replaces=REPLACES[name], launches=counts[name],
+                    replaces=REPLACES[name],
+                    launches=counts[name],
+                    launches_by_path=dict(main=counts[name],
+                                          refine=refine_counts[name]),
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
@@ -767,6 +1056,7 @@ def main(argv=None) -> int:
                             bytes_per_s=PEAK_BYTES_PER_S),
                  build_s=build_s, ptxas=ptxas, total_s=total_s,
                  identity_comparisons=compared, studies=report,
+                 quire=quire, refine=refine_report, mp_cells=mp_cells,
                  kernels=kernels, timings=list(rows.values()),
                  gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))

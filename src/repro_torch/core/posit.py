@@ -16,9 +16,17 @@ What differs from the reference, and why:
 * Every op is a separate eager PyTorch op, so each one rounds on its own:
   the fast backend and the chain ops depend on that (no FMA, no fused
   ``addcmul``).
-* Only the reference's ``fast`` backend is here.  The int64 ``exact``
-  backend, ``pconvert`` and ``rounding_eps`` are not ported yet (ROADMAP
-  A1); asking for them raises ``NotImplementedError``.
+* Both backends are here: ``exact`` (int64 significand arithmetic, the
+  default, as in the reference) and ``fast`` (f64 emulation).  The
+  exact backend's integer divide is ``torch.div(..., rounding_mode=
+  "floor")`` on positive int64, never a true division, and every shift
+  count stays below 64.
+* ``from_float32`` and ``rounding_eps`` read f32/f64 subnormals as zero,
+  as XLA on the CPU does for the reference (denormals-are-zero), and
+  ``rounding_eps`` takes inf/NaN as the reference's ``frexp`` does
+  (exponent 0).
+* The reference's ``jitted`` (a cache of jit-compiled op handles) has no
+  counterpart: PyTorch runs eagerly, so the ops are called directly.
 """
 from __future__ import annotations
 
@@ -29,6 +37,8 @@ from repro_torch.core.formats import P32E2, PositFormat
 # Working significand layout: 1.f normalized to [2^F, 2^{F+1}) (as in the
 # reference); F holds the widest posit fraction (27 bits for p32e2).
 _F = 27
+# Guard bits appended for alignment/rounding inside add/div/sqrt.
+_G = 3
 _I64 = torch.int64
 _MASK63 = (1 << 63) - 1
 _F64_MAN = (1 << 52) - 1
@@ -63,15 +73,14 @@ def _exp_mantissa_f64(x: torch.Tensor):
 # --------------------------------------------------------------------------
 
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
-    """floor(log2(x)) for x > 0 (int64), 6 fixed binary-search steps."""
+    """floor(log2(x)) for 0 < x < 2^63 (int64): the exponent of x's
+    nearest f64, less one where rounding carried x up to the next power
+    of two.  Exact, and a few elementwise ops where the reference's
+    binary search takes 30: every decode and every quire rounding calls
+    it, and on a GPU each op is a launch."""
     x = _i64(x)
-    r = torch.zeros_like(x)
-    for s in (32, 16, 8, 4, 2, 1):
-        t = x >> s
-        big = t > 0
-        x = torch.where(big, t, x)
-        r = r + torch.where(big, s, 0)
-    return r
+    e = ((x.to(torch.float64).view(_I64) >> 52) - 1023).clamp(0, 62)
+    return e - ((1 << e) > x).to(_I64)
 
 
 # --------------------------------------------------------------------------
@@ -210,6 +219,139 @@ def to_float32_bits(p, fmt: PositFormat = P32E2) -> torch.Tensor:
     return to_float64(p, fmt).to(torch.float32)
 
 
+def to_float32(p, fmt: PositFormat = P32E2) -> torch.Tensor:
+    """posit -> f32 by the reference's f64 route, which for the registered
+    formats (all f32-normal) is ``to_float32_bits``."""
+    return to_float32_bits(p, fmt)
+
+
+def from_float32(x, fmt: PositFormat = P32E2) -> torch.Tensor:
+    """f32 -> posit words through the exact f64 value.  f32 subnormals
+    read as zero, as the reference's f32 -> f64 conversion on XLA's CPU
+    (denormals-are-zero) gives."""
+    x = torch.as_tensor(x).to(torch.float32)
+    sub = ((x.view(torch.int32) >> 23) & 0xFF) == 0
+    return from_float64(torch.where(sub, 0.0, x.to(torch.float64)), fmt)
+
+
+def pconvert(p, src: PositFormat, dst: PositFormat) -> torch.Tensor:
+    """Posit -> posit format conversion, correctly rounded: exact decode
+    to f64, one round-to-nearest-even encode in ``dst`` (widening is
+    exact).  NaR maps to NaR, zero to zero."""
+    if src == dst:
+        return torch.as_tensor(p).to(torch.int32)
+    return from_float64(to_float64(p, src), dst)
+
+
+# --------------------------------------------------------------------------
+# arithmetic — exact backend (int64 significands)
+# --------------------------------------------------------------------------
+
+def _normalize(mag, sticky):
+    """Normalize mag > 0 to [2^(F+G), 2^(F+G+1)) tracking sticky; returns
+    (sig, sticky, msb) at width F+G.  mag == 0 is handled by the caller."""
+    w = _F + _G
+    msb = floor_log2(torch.where(mag == 0, 1, mag))
+    dl = w - msb                                        # left shift if > 0
+    left = dl.clamp(min=0)
+    right = (-dl).clamp(min=0)                          # a few bits at most
+    lost = mag & ((1 << right) - 1)
+    sig = torch.where(dl >= 0, mag << left, mag >> right)
+    return sig, sticky | (lost != 0), msb
+
+
+def _words(x) -> torch.Tensor:
+    return torch.as_tensor(x).to(torch.int32)
+
+
+def add_(a, b, fmt: PositFormat = P32E2):
+    a, b = _words(a), _words(b)
+    za, na, sa, ca, fa = decode(a, fmt)
+    zb, nb, sb, cb, fb = decode(b, fmt)
+
+    # order |a| >= |b|
+    swap = (cb > ca) | ((cb == ca) & (fb > fa))
+    sa_, sb_ = torch.where(swap, sb, sa), torch.where(swap, sa, sb)
+    ca_, cb_ = torch.where(swap, cb, ca), torch.where(swap, ca, cb)
+    fa_, fb_ = torch.where(swap, fb, fa), torch.where(swap, fa, fb)
+
+    d = (ca_ - cb_).clamp(0, _F + _G + 2)
+    big = fa_ << _G
+    small = fb_ << _G
+    lost = small & ((1 << d) - 1)
+    jammed = (small >> d) | (lost != 0).to(_I64)        # sticky in bit 0
+    mag = torch.where(sa_ != sb_, big - jammed, big + jammed)
+
+    res_zero = mag == 0
+    sig, sticky, msb = _normalize(mag, torch.zeros_like(res_zero))
+    scale = ca_ + msb - (_F + _G)
+
+    is_nar_ = na | nb
+    is_zero = (za & zb) | (res_zero & ~is_nar_)        # exact cancel: +0
+    sign = torch.where(za, sb_ & ~zb, sa_)
+    out = encode(sign, scale, sig, sticky, is_zero, is_nar_, fmt,
+                 width=_F + _G)
+    out = torch.where(za & ~zb & ~is_nar_, b, out)
+    return torch.where(zb & ~za & ~is_nar_, a, out)
+
+
+def mul_(a, b, fmt: PositFormat = P32E2):
+    za, na, sa, ca, fa = decode(a, fmt)
+    zb, nb, sb, cb, fb = decode(b, fmt)
+    prod = fa * fb                                      # < 2^56, exact
+    ge2 = ((prod >> (2 * _F + 1)) > 0).to(_I64)
+    shift = (_F - _G) + ge2                             # to F+G bits
+    sig = prod >> shift
+    sticky = (prod & ((1 << shift) - 1)) != 0
+    is_nar_ = na | nb
+    return encode(sa ^ sb, ca + cb + ge2, sig, sticky, (za | zb) & ~is_nar_,
+                  is_nar_, fmt, width=_F + _G)
+
+
+def div_(a, b, fmt: PositFormat = P32E2):
+    za, na, sa, ca, fa = decode(a, fmt)
+    zb, nb, sb, cb, fb = decode(b, fmt)
+    num = fa << (_F + _G + 1)                         # <= 2^59
+    q = torch.div(num, fb, rounding_mode="floor")       # positive int64
+    r = num - q * fb
+    # q in (2^(F+G), 2^(F+G+2)): normalize to [2^(F+G), 2^(F+G+1)).
+    ge2 = (q >> (_F + _G + 1)) > 0
+    scale = ca - cb - 1 + ge2.to(_I64)
+    lost = torch.where(ge2, q & 1, 0)
+    sig = torch.where(ge2, q >> 1, q)
+    is_nar_ = na | nb | zb                              # x/0 = NaR
+    return encode(sa ^ sb, scale, sig, (r != 0) | (lost != 0), za & ~is_nar_,
+                  is_nar_, fmt, width=_F + _G)
+
+
+def sqrt_(a, fmt: PositFormat = P32E2):
+    za, na, sa, ca, fa = decode(a, fmt)
+    is_nar_ = na | (sa & ~za)                           # sqrt(neg) = NaR
+    half = ca >> 1                                      # floor(scale / 2)
+    r = ca - (half << 1)                                # 0 or 1
+    # a = X * 2^(2*half - F - 33) with X = fa << (r + 33) in [2^60, 2^62),
+    # so sqrt(a) = isqrt(X) * 2^(half - 30).
+    x = fa << (r + 33)
+    s0 = torch.floor(torch.sqrt(x.to(torch.float64))).to(_I64)
+    # the f64 estimate is within +-1 of isqrt(X); two rounds make it exact
+    for _ in range(2):
+        s0 = torch.where((s0 + 1) * (s0 + 1) <= x, s0 + 1, s0)
+        s0 = torch.where(s0 * s0 > x, s0 - 1, s0)
+    # s0 in [2^30, 2^31) == [2^(F+G), 2^(F+G+1)): already normalized
+    return encode(torch.zeros_like(sa), half, s0, s0 * s0 != x, za, is_nar_,
+                  fmt, width=_F + _G)
+
+
+def neg_(a, fmt: PositFormat = P32E2) -> torch.Tensor:
+    a = _words(a)
+    return torch.where(a == fmt.nar_pattern, a, -a)
+
+
+def abs_(a, fmt: PositFormat = P32E2) -> torch.Tensor:
+    a = _words(a)
+    return torch.where(a == fmt.nar_pattern, a, a.abs())
+
+
 # --------------------------------------------------------------------------
 # fast backend (f64 emulation) + public dispatch
 # --------------------------------------------------------------------------
@@ -230,14 +372,20 @@ _FAST = {
 }
 
 
+_EXACT = {
+    "add": add_,
+    "sub": lambda a, b, fmt=P32E2: add_(a, neg_(b, fmt), fmt),
+    "mul": mul_,
+    "div": div_,
+    "sqrt": sqrt_,
+}
+
+
 def _dispatch(name, backend):
-    if backend == "exact":
-        raise NotImplementedError(
-            "the int64 'exact' posit backend is not ported yet (ROADMAP A1); "
-            "use backend='fast'")
-    if backend != "fast":
+    table = {"exact": _EXACT, "fast": _FAST}.get(backend)
+    if table is None:
         raise ValueError(f"unknown backend {backend!r}")
-    return _FAST[name]
+    return table[name]
 
 
 def add(a, b, fmt: PositFormat = P32E2, backend: str = "exact"):
@@ -332,3 +480,21 @@ def chain_div(a, b, fmt: PositFormat = P32E2):
 
 def chain_sqrt(a, fmt: PositFormat = P32E2):
     return chain_round(torch.sqrt(a), fmt)
+
+
+# --------------------------------------------------------------------------
+# epsilon model (paper §2: golden zone)
+# --------------------------------------------------------------------------
+
+def rounding_eps(x, fmt: PositFormat = P32E2) -> torch.Tensor:
+    """Relative rounding ulp of |x| in this format (the paper's
+    epsilon_posit).  The exponent comes from the bits; zero and f64
+    subnormals give 0, inf/NaN the reference's ``frexp`` exponent 0."""
+    x = torch.as_tensor(x).to(torch.float64)
+    scale, _, special, zero = _exp_mantissa_f64(x)
+    scale = torch.where(special, -1, scale)
+    k = scale >> fmt.es
+    reg_len = torch.where(k >= 0, k + 2, 1 - k)
+    fs = (fmt.nbits - 1 - reg_len - fmt.es).clamp(min=0)
+    eps = _pow2_bits_f64(-fs).view(torch.float64)
+    return torch.where(zero, 0.0, eps)

@@ -1,10 +1,12 @@
-"""Move posit words and pivots between numpy and the port's tensors.
+"""Move posit words, pivots and quire states between numpy and the port's
+tensors.
 
-The reference keeps posit matrices as int32 word arrays and LU pivots as
-0-based int32 vectors; the port keeps the same as int32 tensors.  These
-helpers convert in both directions and check dtype and shape on the way,
-so the same words can be handed to both packages (the tests do) or a
-result of one can be loaded into the other.
+The reference keeps posit matrices as int32 word arrays, LU pivots as
+0-based int32 vectors and a quire as int64 limbs (..., L) with a bool NaR
+flag (...); the port keeps the same as tensors.  These helpers convert in
+both directions and check dtype and shape on the way, so the same words
+(or the same unrounded quire) can be handed to both packages (the tests
+do) or a result of one can be loaded into the other.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.quire import Quire
 
 
 def _check(arr: np.ndarray, what: str, ndim: int | None, shape) -> None:
@@ -60,3 +63,27 @@ def pivots_to_numpy(t: torch.Tensor, n: int | None = None) -> np.ndarray:
     arr = t.detach().cpu().numpy()
     _check(arr, "pivots", 1, None if n is None else (n,))
     return arr
+
+
+def quire_to_torch(limbs, nar, device="cuda") -> Quire:
+    """A quire state as numpy holds it (int64 limbs (..., L), bool NaR
+    flags (...)) -> a ``Quire`` on ``device``."""
+    limbs, nar = np.asarray(limbs), np.asarray(nar)
+    if limbs.dtype != np.int64:
+        raise TypeError(f"quire limbs must be int64, got {limbs.dtype}")
+    if nar.dtype != np.bool_:
+        raise TypeError(f"quire NaR flags must be bool, got {nar.dtype}")
+    if limbs.ndim < 1 or nar.shape != limbs.shape[:-1]:
+        raise ValueError(f"limbs {limbs.shape} and nar {nar.shape} do not "
+                         "describe one quire per element")
+    dev = _device.resolve(device)
+    return Quire(limbs=torch.from_numpy(np.array(limbs, copy=True)).to(dev),
+                 nar=torch.from_numpy(np.array(nar, copy=True)).to(dev))
+
+
+def quire_to_numpy(q: Quire) -> tuple[np.ndarray, np.ndarray]:
+    """A ``Quire`` (any device) -> (int64 limbs, bool NaR flags) in numpy."""
+    if q.limbs.dtype != torch.int64 or q.nar.dtype != torch.bool:
+        raise TypeError(f"a quire holds int64 limbs and bool flags, got "
+                        f"{q.limbs.dtype} and {q.nar.dtype}")
+    return q.limbs.detach().cpu().numpy(), q.nar.detach().cpu().numpy()

@@ -18,7 +18,13 @@ Backends, under the reference's names:
   semantics without the kernel).
 * ``faithful`` — per-MAC posit rounding in BLAS chain order (the paper's
   PE behaviour), the ground truth of the accuracy studies.
-* ``quire_exact`` is not ported yet (ROADMAP A2) and raises.
+* ``quire_exact`` — the posit standard's quire (``repro_torch.quire``):
+  exact fixed-point accumulation in int64 limbs, ONE rounding per output.
+  |alpha| = 1 is an exact product negation and beta = 1 an exact quire
+  add of C, so the trailing update (alpha=-1, beta=1) is a single fused
+  op; any other alpha/beta costs one pre-rounded posit scaling.  Plain
+  PyTorch on either device: the reference computes it in plain ``jnp``,
+  outside any Pallas kernel.
 
 Beta semantics: beta == 0 means C is NOT referenced on every backend
 except ``faithful``, whose literal per-op chain computes 0 * C first.
@@ -32,8 +38,10 @@ from repro_torch.core import posit
 from repro_torch.core.formats import P32E2, PositFormat
 from repro_torch.kernels import ref
 from repro_torch.kernels.posit_gemm import posit_gemm, posit_gemm_f32
+from repro_torch.quire import quire_gemm
 
-BACKENDS = ("pallas_split3", "pallas_split3_comp", "xla_quire", "faithful")
+BACKENDS = ("pallas_split3", "pallas_split3_comp", "xla_quire", "faithful",
+            "quire_exact")
 
 
 def _scalar_posit(x, fmt: PositFormat, device) -> torch.Tensor:
@@ -51,10 +59,6 @@ def rgemm(a_p: torch.Tensor, b_p: torch.Tensor,
           fmt: PositFormat = P32E2) -> torch.Tensor:
     """Posit GEMM returning int32 posit words in format ``fmt``, on the
     device of ``a_p``."""
-    if backend == "quire_exact":
-        raise NotImplementedError(
-            "the quire_exact backend needs the quire, which is not ported "
-            "yet (ROADMAP A2)")
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     a_p = a_p.to(torch.int32)
@@ -70,6 +74,21 @@ def rgemm(a_p: torch.Tensor, b_p: torch.Tensor,
     beta_p = _scalar_posit(beta, fmt, dev)
     if c_p is None:
         c_p = torch.zeros((m, n), dtype=torch.int32, device=dev)
+
+    if backend == "quire_exact":
+        # Fold alpha/beta so the common BLAS-3 updates stay single-rounding:
+        # |alpha| == 1 -> exact product negation; beta == 1 -> exact quire
+        # add of C; anything else costs one pre-rounded posit scaling.
+        a_in = a_p
+        if alpha not in (1.0, -1.0):
+            a_in = posit.mul(alpha_p, a_p, fmt, backend="fast")
+        if beta == 0:
+            c_in = None
+        elif beta == 1:
+            c_in = c_p
+        else:
+            c_in = posit.mul(beta_p, c_p, fmt, backend="fast")
+        return quire_gemm(a_in, b_p, c_in, fmt, negate=alpha == -1.0)
 
     if backend == "faithful":
         # BLAS chain order: C0 = beta*C; accumulate alpha*B(l,j) * A(:,l).

@@ -8,10 +8,16 @@ format ``fmt`` (Rpotrf+Rpotrs or Rgetrf+Rgetrs) and in binary32
     e = |b - A x_hat| / |b|           (relative backward error, 2-norm)
     digits = log10(e_binary32 / e_posit)   (paper Fig. 7; > 0 => posit wins)
 
+``refinement_study`` compares a plain solve with the quire-refined pair
+from the same factorization; ``mixed_precision_study`` compares the
+mixed-precision drivers (p16e1 factor + p32e2 quire refinement) with the
+full-width ones.
+
 The inputs are made with numpy from ``seed`` exactly as the reference
 makes them, so the same cell gives the same posit words in both packages.
-``backward_error_ensemble`` and the refinement / mixed-precision /
-least-squares studies wait for ROADMAP A5-A7.
+Not ported yet: ``backward_error_ensemble`` (needs the batched
+factorizations, ROADMAP A5), ``least_squares_study`` (QR, A7) and
+``golden_zone_study`` (observability, A8).
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 from repro_torch import _device
 from repro_torch.core import posit
 from repro_torch.core.formats import P32E2, PositFormat
-from repro_torch.lapack import decomp, solve
+from repro_torch.lapack import decomp, refine, solve
 
 
 def make_spd(n: int, sigma: float, seed: int = 0) -> np.ndarray:
@@ -101,3 +107,114 @@ def backward_error_study(n: int, sigma: float, algo: str = "lu",
 
     return ErrorResult(n=n, sigma=sigma, algo=algo, e_posit=e_posit,
                        e_binary32=e_b32, fmt=fmt.name)
+
+
+def _study_inputs(n, sigma, algo, seed, dev):
+    """The §5.1 cell as the refinement studies pose it: (A, b) as p32e2
+    words on ``dev`` and their exact f64 values (the problem the solver
+    actually sees)."""
+    if algo == "cholesky":
+        a64 = make_spd(n, sigma, seed)
+    elif algo == "lu":
+        a64 = make_general(n, sigma, seed)
+    else:
+        raise ValueError(algo)
+    b64 = a64 @ np.full((n,), 1.0 / np.sqrt(n))
+    a_p = posit.from_float64(torch.from_numpy(a64).to(dev))
+    b_p = posit.from_float64(torch.from_numpy(b64).to(dev))
+    return (a_p, b_p, posit.to_float64(a_p).cpu().numpy(),
+            posit.to_float64(b_p).cpu().numpy())
+
+
+def _pair_error(a64q, b64q, x_hi, x_lo) -> float:
+    return _backward_error(
+        a64q, refine.pair_to_float64(x_hi, x_lo).cpu().numpy(), b64q)
+
+
+# --------------------------------------------------------------------------
+# beyond-paper: quire iterative refinement vs plain posit solve
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RefineResult:
+    n: int
+    sigma: float
+    algo: str
+    iters: int
+    e_plain: float      # plain Rgetrs/Rpotrs from the same factorization
+    e_ir: float         # after quire-exact iterative refinement
+
+    @property
+    def digits_gained(self) -> float:
+        """Decimal digits of backward error recovered by refinement."""
+        return float(np.log10(self.e_plain / max(self.e_ir, 1e-300)))
+
+
+def refinement_study(n: int, sigma: float = 1.0, algo: str = "lu",
+                     seed: int = 0, nb: int = 32, iters: int = 3,
+                     gemm_backend: str = "xla_quire",
+                     device="cuda") -> RefineResult:
+    """§5.1 protocol (sigma=1) comparing the plain posit solve against
+    rgesv_ir/rposv_ir from the SAME factorization, on ``device``.
+    Backward errors are measured against the posit-held (A, b) the solver
+    was given (decoded exactly to binary64)."""
+    dev = _device.resolve(device)
+    a_p, b_p, a64q, b64q = _study_inputs(n, sigma, algo, seed, dev)
+    if algo == "cholesky":
+        (x_hi, x_lo), l_p = refine.rposv_ir(a_p, b_p, iters=iters, nb=nb,
+                                            gemm_backend=gemm_backend)
+        x_plain = solve.rpotrs(l_p, b_p)
+    else:
+        (x_hi, x_lo), (lu, ipiv) = refine.rgesv_ir(
+            a_p, b_p, iters=iters, nb=nb, gemm_backend=gemm_backend)
+        x_plain = solve.rgetrs(lu, ipiv, b_p)
+    e_plain = _backward_error(a64q, posit.to_float64(x_plain).cpu().numpy(),
+                              b64q)
+    return RefineResult(n=n, sigma=sigma, algo=algo, iters=iters,
+                        e_plain=e_plain,
+                        e_ir=_pair_error(a64q, b64q, x_hi, x_lo))
+
+
+# --------------------------------------------------------------------------
+# mixed-precision IR vs full-width IR on the §5.1 sigma grid
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MixedPrecisionResult:
+    n: int
+    sigma: float
+    algo: str
+    e_ir: float         # full-width (p32e2) factorization + refinement
+    e_mp: float         # narrow (factor_fmt) factorization + p32e2 refinement
+    factor_fmt: str = "p16e1"
+
+    @property
+    def digits_lost(self) -> float:
+        """Decimal digits of backward error the narrow factorization costs
+        AFTER refinement (~0 wherever the mp loop converges)."""
+        return float(np.log10(max(self.e_mp, 1e-300)
+                              / max(self.e_ir, 1e-300)))
+
+
+def mixed_precision_study(n: int, sigma: float = 1.0, algo: str = "lu",
+                          seed: int = 0, nb: int = 32, iters_ir: int = 3,
+                          iters_mp: int | None = None,
+                          gemm_backend: str = "xla_quire",
+                          device="cuda") -> MixedPrecisionResult:
+    """§5.1 protocol comparing ``rgesv_mp``/``rposv_mp`` (p16e1 factor +
+    p32e2 quire refinement) against ``rgesv_ir``/``rposv_ir`` on the same
+    (A, b) cell, on ``device``.  ``iters_mp=None`` uses each driver's
+    default (8 LU / 16 Cholesky)."""
+    dev = _device.resolve(device)
+    a_p, b_p, a64q, b64q = _study_inputs(n, sigma, algo, seed, dev)
+    mp_kw = {} if iters_mp is None else {"iters": iters_mp}
+    if algo == "cholesky":
+        ir, mp = refine.rposv_ir, refine.rposv_mp
+    else:
+        ir, mp = refine.rgesv_ir, refine.rgesv_mp
+    (h_ir, l_ir), _ = ir(a_p, b_p, iters=iters_ir, nb=nb,
+                         gemm_backend=gemm_backend)
+    (h_mp, l_mp), _ = mp(a_p, b_p, nb=nb, gemm_backend=gemm_backend, **mp_kw)
+    return MixedPrecisionResult(n=n, sigma=sigma, algo=algo,
+                                e_ir=_pair_error(a64q, b64q, h_ir, l_ir),
+                                e_mp=_pair_error(a64q, b64q, h_mp, l_mp))

@@ -1,21 +1,22 @@
 """Rpotrs / Rgetrs / Rtrtrs — solve A x = b from the posit factorizations,
 plus binary32 counterparts (counterpart of ``repro.lapack.solve``).
 
-``quire=True`` (the quire-exact sweeps) waits for ROADMAP A2 and raises.
+``quire=True`` switches the substitution sweeps to the quire-exact
+variants (one rounding per solved component; lapack/blas.py), the
+building block of the iterative-refinement drivers in lapack/refine.py.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.formats import P32E2, PositFormat
-from repro_torch.lapack.blas import rtrsv_lower, rtrsv_upper
+from repro_torch.lapack.blas import (rtrsv_lower, rtrsv_lower_quire,
+                                     rtrsv_upper, rtrsv_upper_quire)
 
 
 def _sweeps(quire: bool):
     if quire:
-        raise NotImplementedError(
-            "quire-exact substitution sweeps need the quire, which is not "
-            "ported yet (ROADMAP A2)")
+        return rtrsv_lower_quire, rtrsv_upper_quire
     return rtrsv_lower, rtrsv_upper
 
 

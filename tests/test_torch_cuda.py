@@ -14,7 +14,8 @@ equal encode(± its own f32 output) bit for bit.  The tiled GEMM kernel
 keeps the first (simple) kernel's order of operations per output, so its
 output must equal the simple kernel's bit for bit.  Where the lo planes decide the product (one nonzero
 per row of A), split3 is held to two f32 roundings of the exact product,
-which a GEMM without the lo planes misses (tests/torch_inputs.py).
+which a GEMM without the lo planes misses (tests/torch_inputs.py).  The
+quire is integer PyTorch code, so on the card it must give the CPU's words.
 """
 import numpy as np
 import pytest
@@ -205,3 +206,39 @@ def test_cuda_rgemm_launches_tiled_kernel_only(cuda_device):
     assert counts["decode_planes"] == 3
     assert counts["posit_gemm_f32_simple"] == 0
     assert counts["posit_gemm_simple"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FMTS)
+def test_cuda_quire_matches_cpu(cuda_device, name):
+    """The quire is plain PyTorch integer code: on the card it gives the
+    CPU's words (quire_gemm, quire_dot with init/negate, rgemm
+    quire_exact) and the quire sweeps give the CPU's solution."""
+    from repro_torch import quire as TQ
+    from repro_torch.kernels.ops import rgemm
+    from repro_torch.lapack import solve as TS
+    fmt = TF.FORMATS[name]
+    rng = np.random.default_rng(18)
+    a = ti.posits(rng, (33, 40), -8, 8, fmt)
+    b = ti.posits(rng, (40, 21), -8, 8, fmt)
+    c = ti.posits(rng, (33, 21), -2, 2, fmt)
+    ag, bg, cg = (x.to(cuda_device) for x in (a, b, c))
+    assert torch.equal(TQ.quire_gemm(ag, bg, cg, fmt, negate=True).cpu(),
+                       TQ.quire_gemm(a, b, c, fmt, negate=True))
+    assert torch.equal(
+        TQ.quire_dot(ag[:, None, :], bg.T[None], fmt, init_p=cg,
+                     negate=True, kc=7).cpu(),
+        TQ.quire_dot(a[:, None, :], b.T[None], fmt, init_p=c, negate=True,
+                     kc=7))
+    assert torch.equal(
+        rgemm(ag, bg, cg, alpha=2.0, beta=-0.5, backend="quire_exact",
+              fmt=fmt).cpu(),
+        rgemm(a, b, c, alpha=2.0, beta=-0.5, backend="quire_exact",
+              fmt=fmt))
+    m = ti.posits(rng, (24, 24), -1, 1, fmt)
+    rhs = ti.posits(rng, (24,), -1, 1, fmt)
+    got = TS.rtrtrs(m.to(cuda_device), rhs.to(cuda_device), lower=True,
+                    unit_diag=True, quire=True, fmt=fmt)
+    assert torch.equal(got.cpu(), TS.rtrtrs(m, rhs, lower=True,
+                                            unit_diag=True, quire=True,
+                                            fmt=fmt))

@@ -37,6 +37,7 @@ from repro_torch.core import formats as TF
 from repro_torch.core import posit as TP
 from repro_torch.kernels import _build
 from repro_torch.kernels import posit_gemm as TG
+from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
 from repro_torch.kernels.ops import rgemm as t_rgemm
 
@@ -312,11 +313,21 @@ def test_rgemm_beta_zero_ignores_nar_in_c(backend):
 
 
 def test_rgemm_unported_backends_raise():
-    a = torch.zeros((2, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A2"):
-        t_rgemm(a, a, backend="quire_exact")
+    """Every backend of the reference is ported (quire_exact since the
+    quire landed: the reference's words on a small case); an unknown
+    backend still raises."""
+    assert "quire_exact" in TO.BACKENDS
+    rng = np.random.default_rng(13)
+    a, b, c = (_posits(rng, s, -4, 4) for s in ((9, 12), (12, 5), (9, 5)))
+    got = t_rgemm(_t(a), _t(b), _t(c), alpha=-1.0, beta=1.0,
+                  backend="quire_exact")
+    want = j_rgemm(jnp.asarray(a), jnp.asarray(b), jnp.asarray(c),
+                   alpha=-1.0, beta=1.0, backend="quire_exact")
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    z = torch.zeros((2, 2), dtype=torch.int32)
+    assert not bool(t_rgemm(z, z, backend="quire_exact").any())
     with pytest.raises(ValueError):
-        t_rgemm(a, a, backend="nope")
+        t_rgemm(z, z, backend="nope")
 
 
 # --------------------------------------------------------------------------

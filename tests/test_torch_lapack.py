@@ -106,6 +106,12 @@ def test_split3_factorization_accuracy(backend):
 
 
 def test_unported_quire_sweeps_raise():
-    z = torch.zeros((2, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A2"):
-        TS.rpotrs(z, z[0], quire=True)
+    """The quire sweeps are ported: rpotrs(quire=True) gives the
+    reference's words (tests/test_torch_refine.py covers the rest)."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((12, 12))
+    l_p = _words(np.linalg.cholesky(x.T @ x + 12 * np.eye(12)))
+    b = _words(rng.standard_normal(12))
+    got = TS.rpotrs(_t(l_p), _t(b), quire=True)
+    want = JS.rpotrs(jnp.asarray(l_p), jnp.asarray(b), quire=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
