@@ -15,16 +15,25 @@ words, drives the quire-exact refinement path (``refinement_study`` LU
 and Cholesky, ``mixed_precision_study`` with its p16e1 factorization, the
 mixed-precision acceptance cells) with every trailing update on the
 kernel, holds the four refinement drivers' pair words on the card to the
-CPU's, and times the kernels: the tiled kernel and the simple one
-interleaved, the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks,
-the whole ``rgemm`` trailing-update call and its ``quire_exact`` form.
+CPU's, drives Householder QR and least squares (``rgels`` at the
+reference's QR benchmark shape, ``least_squares_study`` on the paper
+tables' sigma grid; the block reflector's V^T C and T^T W on the fused
+kernel, C -= V W on the f32 one), the batched §5.1 ensemble
+(``backward_error_ensemble``: one batched kernel launch per trailing
+update for the whole sigma x seed grid), holds QR words on the card to
+the CPU's and the batched launch to per-matrix launches, and times the
+kernels: the tiled kernel and the simple one interleaved, the pre-pass,
+the f32 and f64 ``torch.matmul`` yardsticks, the whole ``rgemm``
+trailing-update call and its ``quire_exact`` form, and the batched
+launch against per-matrix ones.
 Every phase raises on a failed check, so the script exits non-zero unless
 all of them pass.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it carries
 the card's name and power limit as ``nvidia-smi`` reports them, and the
-line before that the per-kernel JSON (``launches`` on the §5.1 path,
-``launches_by_path`` adding the refinement path's, each counted from zero
-around its own run; error, times and bound).
+line before that the per-kernel JSON (``launches``: on the §5.1 main
+path; ``launches_by_path``: on it and on the refinement, QR and ensemble
+paths, each counted from zero around its own run; ``on_main_path``:
+launched on one of them; error, times and bound).
 
 It imports nothing of JAX or of the JAX package ``repro``, and needs one
 CUDA device; without one it exits with code 2 and prints no result.
@@ -50,15 +59,18 @@ PEAK_BYTES_PER_S = 3.35e12
 
 MAIN_LU = dict(n=4096, sigma=1.0, algo="lu", nb=64)
 MAIN_CHOL = dict(n=1024, sigma=1.0, algo="cholesky", nb=64)
-# The refinement path: quire refinement of an LU and of the main Cholesky
-# cell, and the mixed-precision study (p16e1 factor, p32e2 refinement) at
-# the Cholesky cell's size.  The LU cell is cut from the main cell's
-# n=4096 to 1024: its quire sweeps are host-bound, a few hundred small
-# launches a row (PERF.md §5), and at 2048 the whole script took 1017 s
-# of its 1200 s limit on an H100.
+# The refinement path: quire refinement of an LU and of a Cholesky, and
+# the mixed-precision study (p16e1 factor, p32e2 refinement).  Their quire
+# sweeps are host-bound, a few hundred small launches a row (PERF.md §5),
+# so the cells are cut for the time limit: the LU from the main cell's
+# n=4096 to 1024 (at 2048 the whole script took 1017 s of its 1200 s on
+# an H100), the Cholesky and the mixed study from 1024 to 512 once the
+# QR and ensemble phases came in (814.6 s with them at 1024 on a fast
+# host, where the slowest host seen runs the host-bound phases ~1.5x
+# slower).
 REFINE_LU = dict(n=1024, sigma=1.0, algo="lu", nb=64, iters=3)
-REFINE_CHOL = dict(n=1024, sigma=1.0, algo="cholesky", nb=64, iters=3)
-MIXED = dict(n=1024, sigma=1.0, algo="lu", nb=64)
+REFINE_CHOL = dict(n=512, sigma=1.0, algo="cholesky", nb=64, iters=3)
+MIXED = dict(n=512, sigma=1.0, algo="lu", nb=64)
 # The reference's mixed-precision acceptance cells
 # (benchmarks/bench_formats.py bench_mixed, tests/test_formats.py).
 MP_CELLS = (("lu", 64, 1e-2), ("lu", 64, 1.0), ("lu", 64, 1e2),
@@ -68,15 +80,52 @@ QUIRE_SHAPES = ((17, 23, 9), (65, 130, 33), (256, 64, 256))
 # (two panels at the drivers' nb=32) for the time limit, as above.
 PARITY_DRIVERS = (("rgesv_ir", 64), ("rposv_ir", 64), ("rgesv_mp", 64),
                   ("rposv_mp", 48))
-GEMM_SHAPES = ((65, 17, 130), (33, 65, 9), (4032, 64, 4032), (64, 64, 64))
+# Householder QR at the reference's QR benchmark shape
+# (benchmarks/bench_qr.py:104-106: n = 256, m = n + n // 2, nb = 32), and
+# the least-squares study on the paper tables' grid
+# (benchmarks/paper_tables.py:170-186), gated as benchmarks/bench_qr.py
+# gates it.
+QR_CELL = dict(m=384, n=256, nb=32)
+LSTSQ = dict(m=96, n=64, nb=32, sigmas=(1e-2, 1.0, 1e2))
+QR_PARITY = dict(m=40, n=24, nb=8)
+# The batched §5.1 ensemble on Fig. 7's sigma grid x two seeds.  Cholesky
+# runs at n=512: its panels are the costliest launch sequence.
+ENSEMBLE_SIGMAS = (1e-2, 1.0, 1e2, 1e4, 1e6)
+ENSEMBLE_SEEDS = (0, 1)
+ENSEMBLE_CELLS = (dict(n=1024, algo="lu", nb=64),
+                  dict(n=512, algo="cholesky", nb=64))
+# The ensemble LU's first trailing update, (10 x 960, 64, 960).
+BATCH_SHAPE = (len(ENSEMBLE_SIGMAS) * len(ENSEMBLE_SEEDS), 960, 64, 960)
+# The QR path's GEMM forms at the [qr] cell's first block: V^T C over three
+# K chunks (K = m - j up to 384 > kc = 128), the same against a vector
+# (rormqr, N=1), and C -= V W.
+QR_GEMM_SHAPES = ((32, 384, 224), (32, 384, 1), (352, 32, 224))
+GEMM_SHAPES = ((65, 17, 130), (33, 65, 9), (4032, 64, 4032),
+               (64, 64, 64)) + QR_GEMM_SHAPES
+# Where the lo planes decide the product, also at the QR forms' shapes (the
+# N=1 one has too few outputs for the hi-only control to miss reliably).
+LO_PLANE_SHAPES = ((32, 384, 224), (352, 32, 224))
+# e_qr of the JAX package's rgels at the [qr] cell with pallas_split3
+# (tools/qr_reference_numbers.py prints it); the port's kernel must land
+# within E_QR_DIGITS of it.
+E_QR_REFERENCE = 4.07195566435249e-07
+E_QR_DIGITS = 0.05
 IDENTITY_SHAPES = ((65, 17, 130), (33, 65, 9), (257, 300, 129),
                    (4032, 64, 4032))
 TIMED_SHAPE = (4032, 64, 4032)      # the n=4096 LU's first trailing update
-MIXED_SHAPE = (960, 64, 960)        # the n=1024 studies' first update
-# The tiled kernel's instantiations on the main path (p32e2, split3, one K
-# chunk; f32 out and fused encode): ptxas must report no spills for them.
-MAIN_PATH_KERNELS = ("posit_gemm_kernel<32,2,0,1,0>",
-                     "posit_gemm_kernel<32,2,0,1,1>")
+MIXED_SHAPE = (960, 64, 960)        # the n=1024 LU studies' first update
+# The tiled kernel's instantiations the studies run (split3; the last
+# template flag is BATCHED): p32e2 with one K chunk, f32 out and fused
+# encode; p32e2 fused over several chunks (QR's V^T C, K = m - j > 128);
+# p16e1 f32 (the mixed study) and fused (rgels_mp's QR); the batched p32e2
+# f32 form (the ensemble's updates).  ptxas must report them, and no
+# spills in any.
+MAIN_PATH_KERNELS = ("posit_gemm_kernel<32,2,0,1,0,0>",
+                     "posit_gemm_kernel<32,2,0,1,1,0>",
+                     "posit_gemm_kernel<32,2,0,0,1,0>",
+                     "posit_gemm_kernel<16,1,0,1,0,0>",
+                     "posit_gemm_kernel<16,1,0,1,1,0>",
+                     "posit_gemm_kernel<32,2,0,1,0,1>")
 SOURCES = {"posit_gemm_f32": "posit_gemm.cu", "posit_gemm": "posit_gemm.cu",
            "decode_planes": "posit_gemm.cu",
            "decode_split_f32": "posit_codec.cu",
@@ -90,7 +139,12 @@ REPLACES = {"posit_gemm_f32": "src/repro/kernels/posit_gemm.py:271",
             "encode_posit_f32": "src/repro/kernels/posit_gemm.py:127",
             "posit_gemm_f32_simple": "src/repro/kernels/posit_gemm.py:271",
             "posit_gemm_simple": "src/repro/kernels/posit_gemm.py:271"}
-ON_MAIN_PATH = ("posit_gemm_f32", "decode_planes")
+# Kernels each path must launch (counted from zero around it): the §5.1
+# main path and the paths of later slices.
+ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
+           "refine": ("posit_gemm_f32", "decode_planes"),
+           "qr": ("posit_gemm_f32", "posit_gemm", "decode_planes"),
+           "ensemble": ("posit_gemm_f32", "decode_planes")}
 
 
 def say(*parts):
@@ -313,7 +367,7 @@ def phase_gemm(dev):
     # Where the lo planes decide the product, sqrt(K)*8e-8 would also pass
     # a hi-plane-only GEMM; this check does not, as its control shows.
     limit = ti.LO_PLANE_LIMIT
-    for (m, k, n) in ti.LO_PLANE_SHAPES:
+    for (m, k, n) in ti.LO_PLANE_SHAPES + LO_PLANE_SHAPES:
         a, b = ti.lo_plane_operands(rng, m, k, n, dev)
         e_hi = ti.lo_plane_err(ti.hi_only_product(a, b), a, b)
         check(e_hi > limit, f"lo-plane case {(m, k, n)}: the hi-only control "
@@ -392,19 +446,23 @@ class StageTimer:
     solve".  Around every ``rgemm`` of a factorization it also counts the
     GEMM kernel's launches, by posit format."""
 
-    STAGES = {"panel": [("decomp", "getf2"), ("decomp", "potf2")],
+    STAGES = {"panel": [("decomp", "getf2"), ("decomp", "potf2"),
+                        ("qr", "geqr2")],
+              "larft": [("qr", "larft")],
               "trsm": [("decomp", "rtrsm_left_lower"),
                        ("decomp", "rtrsm_right_lowerT")],
-              "gemm": [("decomp", "rgemm")],
+              "gemm": [("decomp", "rgemm"), ("qr", "rgemm")],
+              "back-substitution": [("qr", "rtrsm_left_upper")],
               "solve": [("solve", "rgetrs"), ("solve", "rpotrs")],
               "quire residual": [("refine", "residual_quire")]}
 
     def __init__(self):
-        from repro_torch.lapack import decomp, refine, solve
-        self.mods = {"decomp": decomp, "solve": solve, "refine": refine}
+        from repro_torch.lapack import decomp, qr, refine, solve
+        self.mods = {"decomp": decomp, "solve": solve, "refine": refine,
+                     "qr": qr}
         self.secs = {stage: 0.0 for stage in
-                     ("panel", "trsm", "gemm", "solve", "quire solve",
-                      "quire residual")}
+                     ("panel", "larft", "trsm", "gemm", "back-substitution",
+                      "solve", "quire solve", "quire residual")}
         self.gemm = {}              # fmt -> rgemm calls and kernel launches
         self.saved = []
 
@@ -447,6 +505,75 @@ class StageTimer:
         for mod, name, fn in self.saved:
             setattr(mod, name, fn)
         return False
+
+
+class GemmRecorder:
+    """Keeps a copy of the operands and the output of every GEMM wrapper
+    call that ``rgemm`` makes (``posit_gemm_f32`` and the fused
+    ``posit_gemm``), so that a path's own GEMMs can be held to the plain
+    version afterwards."""
+
+    def __init__(self):
+        self.calls = []             # (name, a, b, keywords, output)
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.ops = ops
+        self.saved = {name: getattr(ops, name)
+                      for name in ("posit_gemm_f32", "posit_gemm")}
+        for name, fn in self.saved.items():
+            def recorded(a, b, _fn=fn, _name=name, **kw):
+                out = _fn(a, b, **kw)
+                self.calls.append((_name, a.clone(), b.clone(), kw,
+                                   out.clone()))
+                return out
+            setattr(ops, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.ops, name, fn)
+        return False
+
+
+def check_path_gemms(path, calls):
+    """Each recorded (2-D) GEMM of a path against its plain version on the
+    same operands: the kernel's f32 output and the plain version's within
+    sqrt(K)*8e-8 of the exact product (phase_gemm's bound), the fused
+    words the path got equal to the encode of the kernel's (± f32)
+    output.  Returns the number of calls and the largest
+    max|kernel-plain| over them."""
+    import numpy as np
+    import torch
+    from repro_torch.core import posit
+    from repro_torch.kernels import posit_gemm as pg
+    import torch_inputs as ti
+    check(calls, f"{path}: no GEMM was recorded")
+    worst = 0.0
+    for name, a, b, kw, out in calls:
+        fmt, mode, bk = kw["fmt"], kw["mode"], kw["bk"]
+        got = pg.posit_gemm_f32(a, b, bk=bk, mode=mode, fmt=fmt)
+        plain = pg.posit_gemm_f32_plain(a, b, bk=bk, mode=mode, fmt=fmt)
+        av, bv = posit.to_float64(a, fmt), posit.to_float64(b, fmt)
+        bound = np.sqrt(a.shape[-1]) * 8e-8
+        e_k = ti.gemm_rel_err(got, av, bv)
+        e_p = ti.gemm_rel_err(plain, av, bv)
+        check(e_k < bound and e_p < bound,
+              f"{path} {name} {fmt.name} {mode} {tuple(a.shape)} @ "
+              f"{tuple(b.shape)}: kernel {e_k:.3g} plain {e_p:.3g} >= "
+              f"bound {bound:.3g}")
+        worst = max(worst, float((got - plain).abs().max()))
+        if name == "posit_gemm":
+            neg = kw.get("negate", False)
+            want = pg.encode_posit_f32_plain(-got if neg else got, fmt)
+            check(torch.equal(out, want),
+                  f"{path} posit_gemm {fmt.name} {mode} neg={neg} "
+                  f"{tuple(a.shape)} @ {tuple(b.shape)}: the path's words "
+                  "!= encode(± the kernel's f32 output)")
+        else:
+            check(same_bits(out, got), f"{path} posit_gemm_f32 "
+                  f"{tuple(a.shape)} @ {tuple(b.shape)}: not deterministic")
+    return len(calls), worst
 
 
 def run_study(cfg, backend, dev, timed=False, study=None):
@@ -772,6 +899,336 @@ def phase_refine_parity(dev):
                 f"{t_cpu:.2f} s)")
 
 
+def backward_error(a64, x64, b64) -> float:
+    """|b - A x| / |b| (2-norms): the §5.1 backward error."""
+    import numpy as np
+    return float(np.linalg.norm(b64 - a64 @ x64) / np.linalg.norm(b64))
+
+
+def ls_inputs(m, n, sigma, seed, dev):
+    """The least-squares cell: (A, b) as p32e2 words on ``dev``, their
+    exact f64 values, and the f64 originals."""
+    import numpy as np
+    import torch
+    from repro_torch.core import posit
+    from repro_torch.lapack.error_eval import make_rect
+    a64 = make_rect(m, n, sigma, seed)
+    b64 = a64 @ np.full(n, 1.0 / np.sqrt(n))
+    a_p = posit.from_float64(torch.from_numpy(a64).to(dev))
+    b_p = posit.from_float64(torch.from_numpy(b64).to(dev))
+    return (a_p, b_p, posit.to_float64(a_p).cpu().numpy(),
+            posit.to_float64(b_p).cpu().numpy(), a64, b64)
+
+
+def qr_gemm_launches(m, n, nb):
+    """(fused, f32) GEMM launches of rgels: three rgemm calls per block of
+    rgeqrf that has columns to its right, and per block of rormqr; V^T C
+    and T^T W take the fused form, C - V W the f32 one."""
+    kk = min(m, n)
+    blocks = len(range(0, kk, nb))
+    updates = sum(1 for j in range(0, kk, nb) if j + min(nb, kk - j) < n)
+    return 2 * (updates + blocks), updates + blocks
+
+
+def graph_cache_report(phase):
+    """The CUDA-graph cache of the chained scans after a phase: graphs
+    kept, and the device memory the caching allocator holds once its free
+    blocks outside graph pools are released (reserved - allocated is then
+    mostly what the graphs' shared pool keeps)."""
+    import torch
+    from repro_torch.lapack import blas
+    torch.cuda.empty_cache()
+    out = dict(scan_graphs=len(blas._ADD_STEPS),
+               memory_reserved_mib=torch.cuda.memory_reserved() / 2**20,
+               memory_allocated_mib=torch.cuda.memory_allocated() / 2**20)
+    say(f"[{phase}] chained-scan graphs cached {out['scan_graphs']} (at most "
+        f"{blas._ADD_STEPS_MAX}); after empty_cache: memory reserved "
+        f"{out['memory_reserved_mib']:.1f} MiB, allocated "
+        f"{out['memory_allocated_mib']:.1f} MiB")
+    return out
+
+
+def phase_qr(dev, smi):
+    """Householder QR least squares at the reference's QR benchmark shape,
+    the block reflector's GEMMs on the kernels: stage seconds, errors,
+    and each kernel's launches, counted from zero around the run."""
+    import math
+    import torch
+    from repro_torch.core import posit
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.lapack import qr
+    m, n, nb = QR_CELL["m"], QR_CELL["n"], QR_CELL["nb"]
+    a_p, b_p, a64q, b64q, a64, b64 = ls_inputs(m, n, 1.0, 0, dev)
+    pg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StageTimer() as st, GemmRecorder() as rec:
+        x, (qr_p, tau) = qr.rgels(a_p, b_p, nb=nb,
+                                  gemm_backend="pallas_split3")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = pg.launch_counts()
+    n_gemm, worst = check_path_gemms("qr", rec.calls)
+    say(f"[qr] the path's {n_gemm} GEMMs (V^T C over up to "
+        f"{-(-m // 128)} K chunks, T^T W, C -= V W, rormqr's N=1 forms) "
+        "held to the plain version on their own operands: within "
+        "sqrt(K)*8e-8 of the exact product, fused words == encode(± "
+        f"kernel f32); max|kernel-plain| {worst:.3e}")
+    stages = {k: v for k, v in st.secs.items() if v}
+    stages["other"] = wall - sum(stages.values())
+    fused, f32 = qr_gemm_launches(m, n, nb)
+    want = dict.fromkeys(counts, 0)
+    want.update(posit_gemm=fused, posit_gemm_f32=f32,
+                decode_planes=fused + f32)
+    check(counts == want, f"qr launches {counts}, expected {want}")
+    e_qr = backward_error(a64q, posit.to_float64(x).cpu().numpy(), b64q)
+    x32 = qr.sgels(torch.from_numpy(a64).to(dev, torch.float32),
+                   torch.from_numpy(b64).to(dev, torch.float32))
+    e_b32 = backward_error(a64, x32.cpu().numpy().astype("float64"), b64)
+    gap = abs(math.log10(e_qr / E_QR_REFERENCE)) if e_qr > 0 else math.inf
+    check(math.isfinite(e_qr) and gap < E_QR_DIGITS,
+          f"qr: e_qr {e_qr} is {gap:.4f} digits from the JAX package's "
+          f"{E_QR_REFERENCE} (limit {E_QR_DIGITS})")
+    check(not bool(posit.is_nar(qr_p).any() or posit.is_nar(tau).any()),
+          "qr: NaR in the factors")
+    digits = math.log10(e_b32 / e_qr)
+    say(f"[qr] rgels (rgeqrf + rormqr + back-substitution) {(m, n)} "
+        f"nb={nb} p32e2 pallas_split3: e_qr {e_qr!r} e_binary32 {e_b32!r} "
+        f"digits {digits!r} (JAX package's e_qr {E_QR_REFERENCE!r}, "
+        f"{gap:.4f} digits away, limit {E_QR_DIGITS}); launches "
+        f"posit_gemm {counts['posit_gemm']}, "
+        f"posit_gemm_f32 {counts['posit_gemm_f32']}, decode_planes "
+        f"{counts['decode_planes']}; wall {wall:.2f} s "
+        + " ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+        + f" [{smi}]")
+    reserved = graph_cache_report("qr")
+    return dict(m=m, n=n, nb=nb, e_qr=e_qr, e_binary32=e_b32, digits=digits,
+                e_qr_reference=E_QR_REFERENCE, path_gemms=n_gemm,
+                path_gemm_max_abs_diff=worst, wall_s=wall, stages_s=stages,
+                gemm=st.gemm, **reserved), counts
+
+
+def phase_lstsq(dev, smi):
+    """least_squares_study on the paper tables' sigma grid with the
+    kernel, gated as the reference gates it (digits_from_opt < 0.1,
+    digits_lost < 0.5).  At sigma=1 the plain solve also runs through the
+    plain split3 GEMM on the CPU, and the kernel's e_qr must lie within
+    0.5 digits of it; the f64 xla_quire GEMM's e_qr is printed beside it.
+    It is no yardstick for split3: the fused-encode W = V^T C is rounded
+    from the f32 accumulator, so a split3 QR solve lands near binary32's
+    error, in the JAX package as well (tools/qr_reference_numbers.py
+    prints both of its errors at this cell)."""
+    import math
+    from repro_torch.core import posit
+    from repro_torch.lapack import qr
+    from repro_torch.lapack.error_eval import least_squares_study
+    m, n, nb = LSTSQ["m"], LSTSQ["n"], LSTSQ["nb"]
+    out = []
+    for sigma in LSTSQ["sigmas"]:
+        t0 = time.perf_counter()
+        r = least_squares_study(m, n, sigma, nb=nb,
+                                gemm_backend="pallas_split3", device=dev)
+        wall = time.perf_counter() - t0
+        check(r.digits_from_opt < 0.1 and r.digits_lost < 0.5,
+              f"lstsq sigma={sigma}: digits_from_opt "
+              f"{r.digits_from_opt:.3f} (limit 0.1), digits_lost "
+              f"{r.digits_lost:.3f} (limit 0.5): {r}")
+        row = dict(sigma=sigma, e_qr=r.e_qr, e_ir=r.e_ir, e_mp=r.e_mp,
+                   e_opt=r.e_opt, e_binary32=r.e_binary32, digits=r.digits,
+                   digits_from_opt=r.digits_from_opt,
+                   digits_lost=r.digits_lost, wall_s=wall)
+        extra = ""
+        if sigma == 1.0:
+            a_p, b_p, a64q, b64q, _, _ = ls_inputs(m, n, sigma, 0, dev)
+
+            def e_qr(backend, device):
+                x, _ = qr.rgels(a_p.to(device), b_p.to(device), nb=nb,
+                                gemm_backend=backend)
+                return backward_error(
+                    a64q, posit.to_float64(x).cpu().numpy(), b64q)
+            e_plain = e_qr("pallas_split3", "cpu")
+            e_x = e_qr("xla_quire", dev)
+            gap = abs(math.log10(r.e_qr / e_plain))
+            check(gap < 0.5, f"lstsq: e_qr {r.e_qr} with the kernel vs "
+                  f"{e_plain} with the plain split3 GEMM: {gap:.3f} digits "
+                  "apart (limit 0.5)")
+            row.update(plain_split3_e_qr=e_plain, xla_quire_e_qr=e_x)
+            extra = (f"; plain split3 (CPU) e_qr {e_plain!r} ({gap:.4f} "
+                     f"digits away); xla_quire e_qr {e_x!r} "
+                     f"({math.log10(r.e_qr / e_x):.4f} digits below the "
+                     "kernel's)")
+        say(f"[lstsq] {(m, n)} sigma={sigma:g} nb={nb} pallas_split3: e_qr "
+            f"{r.e_qr!r} e_ir {r.e_ir!r} e_mp {r.e_mp!r} e_opt {r.e_opt!r} "
+            f"e_binary32 {r.e_binary32!r}; digits {r.digits:.4f} "
+            f"digits_from_opt {r.digits_from_opt:.4f} (< 0.1) digits_lost "
+            f"{r.digits_lost:.4f} (< 0.5){extra}; wall {wall:.2f} s [{smi}]")
+        out.append(row)
+    return out
+
+
+def phase_ensemble(dev, smi):
+    """The batched §5.1 ensemble (Fig. 7's sigma grid x two seeds, one
+    batched factorization and solve): one GEMM and one pre-pass launch per
+    trailing update for the whole batch; then the (sigma=1, seed 0)
+    cell's e_posit against the 2-D study with the same backend and nb
+    (run after the path's launch counts are read)."""
+    import math
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.lapack.error_eval import (backward_error_ensemble,
+                                               backward_error_study)
+    report, cells_by = {}, {}
+    pg.reset_launch_counts()
+    for cfg in ENSEMBLE_CELLS:
+        n, algo, nb = cfg["n"], cfg["algo"], cfg["nb"]
+        res, wall, stages, gemm = run_study(
+            dict(n=n, sigmas=ENSEMBLE_SIGMAS, algo=algo,
+                 seeds=ENSEMBLE_SEEDS, nb=nb), "pallas_split3", dev,
+            timed=True, study=backward_error_ensemble)
+        expect = math.ceil(n / nb) - 1
+        row = gemm.get("p32e2", {})
+        check(sorted(gemm) == ["p32e2"] and row.get("rgemm_calls")
+              == row.get("posit_gemm_f32") == row.get("decode_planes")
+              == expect and row["posit_gemm"] == row["posit_gemm_f32_simple"]
+              == row["posit_gemm_simple"] == 0,
+              f"ensemble {algo} n={n}: {gemm}, expected {expect} trailing "
+              "updates, each ONE GEMM and one pre-pass launch for the batch")
+        check(all(math.isfinite(c.e_posit) and c.e_posit > 0 for c in res),
+              f"ensemble {algo}: {res}")
+        cells_by[algo] = res
+        say(f"[ensemble] {algo} n={n} nb={nb} pallas_split3, batch of "
+            f"{len(res)} (sigma x seed): GEMM launches {row['posit_gemm_f32']}"
+            f" for {expect} batched trailing updates; wall {wall:.2f} s "
+            + " ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+            + f" [{smi}]")
+        for c, (sigma, seed) in zip(res, [(s, sd) for s in ENSEMBLE_SIGMAS
+                                          for sd in ENSEMBLE_SEEDS]):
+            say(f"[ensemble]   {algo} sigma={sigma:g} seed={seed}: e_posit "
+                f"{c.e_posit!r} e_binary32 {c.e_binary32!r} digits "
+                f"{c.digits:.4f}")
+        report[algo] = dict(n=n, nb=nb, wall_s=wall, stages_s=stages,
+                            gemm=gemm, cells=[dict(
+                                sigma=c.sigma, e_posit=c.e_posit,
+                                e_binary32=c.e_binary32) for c in res])
+    counts = pg.launch_counts()
+    say(f"[ensemble] launches on the ensemble path: {json.dumps(counts)}")
+    report["graph_cache"] = graph_cache_report("ensemble")
+    at = [(s, sd) for s in ENSEMBLE_SIGMAS
+          for sd in ENSEMBLE_SEEDS].index((1.0, 0))
+    for cfg in ENSEMBLE_CELLS:
+        n, algo, nb = cfg["n"], cfg["algo"], cfg["nb"]
+        t0 = time.perf_counter()
+        one = backward_error_study(n, 1.0, algo, seed=0, nb=nb,
+                                   gemm_backend="pallas_split3", device=dev)
+        wall = time.perf_counter() - t0
+        got = cells_by[algo][at].e_posit
+        check(got == one.e_posit, f"ensemble {algo} (sigma=1, seed 0): "
+              f"e_posit {got!r} != 2-D study's {one.e_posit!r}")
+        say(f"[ensemble] {algo} n={n} (sigma=1, seed 0): e_posit {got!r} "
+            f"== the 2-D backward_error_study's (wall {wall:.2f} s)")
+        report[algo]["study_2d_wall_s"] = wall
+    return report, counts
+
+
+def phase_qr_parity(dev):
+    """rgels (rgeqrf's factors and tau, rormqr, the back-substitution)
+    with the faithful and quire_exact GEMMs: the card's words equal the
+    CPU's, bit for bit."""
+    from repro_torch.lapack import qr
+    m, n, nb = QR_PARITY["m"], QR_PARITY["n"], QR_PARITY["nb"]
+    a_p, b_p, _, _, _, _ = ls_inputs(m, n, 1.0, 0, "cpu")
+    for backend in ("faithful", "quire_exact"):
+        t0 = time.perf_counter()
+        xg, (qg, tg) = qr.rgels(a_p.to(dev), b_p.to(dev), nb=nb,
+                                gemm_backend=backend)
+        xc, (qc, tc) = qr.rgels(a_p, b_p, nb=nb, gemm_backend=backend)
+        check(same_bits(xg, xc) and same_bits(qg, qc) and same_bits(tg, tc),
+              f"qr parity {(m, n)} nb={nb} {backend}: GPU words != CPU")
+        say(f"[qr parity] rgels {(m, n)} nb={nb} {backend}: x, QR and tau "
+            f"bit-identical on GPU and CPU ({time.perf_counter() - t0:.2f}"
+            " s)")
+
+
+def phase_batched_gemm(dev, smi):
+    """One batched launch (pre-pass + GEMM) against per-matrix 2-D
+    launches, bit for bit: ragged K (below one 16-row stage), N = 1, a
+    transposed A, batch-strided views; p32e2 and p16e1, both modes, f32
+    and fused ±encode.  Then the batched launch timed at the ensemble
+    LU's first update against the same work as 2-D launches, with its
+    bound and the f64 ``torch.bmm`` yardstick."""
+    import numpy as np
+    import torch
+    from repro_torch.core import posit
+    from repro_torch.core.formats import P16E1, P32E2
+    from repro_torch.kernels import posit_gemm as pg
+    import torch_inputs as ti
+    rng = np.random.default_rng(26)
+    compared = 0
+    for fmt in (P32E2, P16E1):
+        def words(shape):
+            return ti.posits(rng, shape, -4, 4, fmt, dev)
+        big = words((3, 400, 400))
+        cases = [("ragged K", words((3, 200, 7)), words((3, 7, 150))),
+                 ("N = 1", words((3, 300, 200)), words((3, 200, 1))),
+                 ("transposed A", words((3, 70, 130)).mT, words((3, 70, 90))),
+                 ("strided views", big[:, 3:260, 5:205], big[:, 10:210, 20:90])]
+        for label, a, b in cases:
+            for mode in pg.MODES:
+                for form, neg in (("f32", False), ("fused", False),
+                                  ("fused", True)):
+                    def run(x, y):
+                        if form == "f32":
+                            return pg.posit_gemm_f32(x, y, bk=16, mode=mode,
+                                                     fmt=fmt)
+                        return pg.posit_gemm(x, y, bk=16, mode=mode,
+                                             negate=neg, fmt=fmt)
+                    before = pg.launch_counts()
+                    got = run(a, b)
+                    after = pg.launch_counts()
+                    gemm = "posit_gemm" if form == "fused" else \
+                        "posit_gemm_f32"
+                    check(after[gemm] - before[gemm] == 1 and
+                          after["decode_planes"] - before["decode_planes"]
+                          == 1, f"batched {label}: not one launch each")
+                    want = torch.stack([run(a[i], b[i]) for i in range(3)])
+                    check(same_bits(got, want), f"batched launch != 2-D "
+                          f"launches: {fmt.name} {mode} {form} neg={neg} "
+                          f"{label}")
+                    compared += 1
+        say(f"[batched] {fmt.name}: one batched launch == 3 per-matrix "
+            "launches bit for bit (ragged K=7, N=1, transposed A, strided "
+            "views; both modes; f32 and fused ±encode; kc=16)")
+    bsz, m, k, n = BATCH_SHAPE
+    a = ti.posits(rng, (bsz, m, k), -4, 4, P32E2, dev)
+    b = ti.posits(rng, (bsz, k, n), -4, 4, P32E2, dev)
+
+    def batched():
+        return pg.posit_gemm_f32(a, b)
+
+    def per_matrix():
+        return [pg.posit_gemm_f32(a[i], b[i]) for i in range(bsz)]
+    check(same_bits(batched(), torch.stack(per_matrix())),
+          "batched launch != 2-D launches at the ensemble's shape")
+    loop_ms, batch_ms, raw = interleaved_ms(per_matrix, batched)
+    flops = 6.0 * bsz * m * k * n
+    nbytes = 4.0 * bsz * (m * k + k * n + m * n)
+    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    by = ("operations" if flops / PEAK_FP32_FLOPS
+          >= nbytes / PEAK_BYTES_PER_S else "bytes")
+    a64, b64 = posit.to_float64(a), posit.to_float64(b)
+    bmm_ms = cuda_ms(lambda: torch.bmm(a64, b64), 20)
+    plain_ms = cuda_ms(lambda: pg.posit_gemm_f32_plain(a, b), 3)
+    say(f"[batched] p32e2 split3 f32 {bsz} x {(m, k, n)}: one batched "
+        f"launch {batch_ms:.4f} ms, {bsz} 2-D launches {loop_ms:.4f} ms "
+        "(2-D, batched, batched, 2-D: " + ", ".join(f"{t:.4f}" for t in raw)
+        + f"); bound {bound_ms:.4f} ms ({by}), batched at "
+        f"{100 * bound_ms / batch_ms:.1f} % of it; plain {plain_ms:.4f} ms; "
+        f"torch.bmm f64 on the decoded values {bmm_ms:.4f} ms [{smi}]")
+    return dict(shape=[bsz, m, k, n], batched_ms=batch_ms,
+                per_matrix_ms=loop_ms, interleaved_ms=raw, bound_ms=bound_ms,
+                bound_by=by, plain_ms=plain_ms, library_bmm_f64_ms=bmm_ms,
+                identity_comparisons=compared)
+
+
 def interleaved_ms(first, second, reps: int = 20):
     """Device times of two functions in turns (first, second, second,
     first; ``graph_ms`` each): (first's mean, second's mean, all four)."""
@@ -925,8 +1382,9 @@ def phase_timings(dev, worst, smi):
             f"FFMA at {flops_rate / 1e12:.0f} TFLOP/s): "
             f"{2.0 * m * k * n / flops_rate * 1e3:.4f} ms")
 
-    # The mixed study's first trailing update (n=1024, nb=64): its p16e1
-    # factorization and its p32e2 one.
+    # The first trailing update of an n=1024 LU (nb=64; the refinement
+    # LU, each matrix of the ensemble LU), in p16e1 (the mixed study's
+    # factor format) and p32e2.
     m2, k2, n2 = MIXED_SHAPE
     for fmt in (P16E1, P32E2):
         a = ti.posits(rng, (m2, k2), -4, 4, fmt, dev)
@@ -949,8 +1407,8 @@ def phase_timings(dev, worst, smi):
             shape=[m2, k2, n2], kernel_ms=kernel_ms, bound_ms=bound_ms,
             bound_by=by, plain_ms=plain_ms, matmul_f32_ms=f32_ms,
             matmul_f64_ms=f64_ms)
-        say(f"[time] {fmt.name} split3 f32 {(m2, k2, n2)} (the mixed "
-            f"study's first update): kernel {kernel_ms:.4f} ms (pre-pass + "
+        say(f"[time] {fmt.name} split3 f32 {(m2, k2, n2)} (an n=1024 "
+            f"LU's first update): kernel {kernel_ms:.4f} ms (pre-pass + "
             f"GEMM, CUDA graph), bound {bound_ms:.4f} ms ({by}), plain "
             f"{plain_ms:.4f} ms, torch.matmul f32 {f32_ms:.4f} / f64 "
             f"{f64_ms:.4f} ms [{smi}]")
@@ -1029,22 +1487,30 @@ def main(argv=None) -> int:
     refine_report, refine_counts = phase_refine(dev, smi)
     mp_cells = phase_mp_cells(dev, smi)
     phase_refine_parity(dev)
+    qr_report, qr_counts = phase_qr(dev, smi)
+    lstsq = phase_lstsq(dev, smi)
+    ens_report, ens_counts = phase_ensemble(dev, smi)
+    phase_qr_parity(dev)
+    batched = phase_batched_gemm(dev, smi)
     rows, grid, extra = phase_timings(dev, worst, smi)
 
-    for name in ON_MAIN_PATH:
-        check(counts[name] > 0, f"{name} was not launched on the main path")
-        check(refine_counts[name] > 0,
-              f"{name} was not launched on the refinement path")
+    by_path = dict(main=counts, refine=refine_counts, qr=qr_counts,
+                   ensemble=ens_counts)
+    for path, names in ON_PATH.items():
+        for name in names:
+            check(by_path[path][name] > 0,
+                  f"{name} was not launched on the {path} path")
     src = "src/repro_torch/kernels/csrc/"
     kernels = [dict(name=name, route="cuda", source=src + SOURCES[name],
                     replaces=REPLACES[name],
                     launches=counts[name],
-                    launches_by_path=dict(main=counts[name],
-                                          refine=refine_counts[name]),
+                    launches_by_path={path: c[name]
+                                      for path, c in by_path.items()},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],
                     plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                     bound_by=r["bound_by"], library_ms=r["library_ms"],
-                    on_main_path=name in ON_MAIN_PATH)
+                    on_main_path=any(name in names
+                                     for names in ON_PATH.values()))
                for name, r in rows.items()]
     total_s = time.perf_counter() - t_start
     say(f"[done] all phases passed in {total_s:.1f} s (build {build_s:.1f} s)")
@@ -1057,6 +1523,8 @@ def main(argv=None) -> int:
                  build_s=build_s, ptxas=ptxas, total_s=total_s,
                  identity_comparisons=compared, studies=report,
                  quire=quire, refine=refine_report, mp_cells=mp_cells,
+                 qr=qr_report, lstsq=lstsq, ensemble=ens_report,
+                 batched=batched,
                  kernels=kernels, timings=list(rows.values()),
                  gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))

@@ -90,10 +90,11 @@ def bind(handle: ctypes.CDLL) -> ctypes.CDLL:
     make)."""
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     sigs = {
-        "posit_decode_planes_launch": [p, p, i, i, i, i64, i64, i64, i64,
-                                       p, p, p, p, i, i, i, i, p],
-        "posit_gemm_launch": [p, p, p, p, p, i, i, i, i, i, i, i64, i, i, i,
-                              i, i, p],
+        "posit_decode_planes_launch": [p, p, i, i, i, i, i64, i64, i64,
+                                       i64, i64, i64, p, p, p, p, i, i, i,
+                                       i, p],
+        "posit_gemm_launch": [p, p, p, p, p, i, i, i, i, i, i, i, i64, i64,
+                              i, i, i, i, i, p],
         "posit_gemm_simple_launch": [p, p, p, i, i, i, i64, i64, i64, i, i,
                                      i, i, i, p],
         "posit_decode_split_launch": [p, p, p, i64, i, p],
@@ -113,7 +114,7 @@ _KERNEL = re.compile(r"(posit_gemm_kernel|posit_gemm_simple_kernel|"
 
 
 def kernel_name(mangled: str) -> str:
-    """``posit_gemm_kernel<32,2,0,1,0>`` for a mangled kernel symbol (its
+    """``posit_gemm_kernel<32,2,0,1,0,0>`` for a mangled kernel symbol (its
     template arguments in order; bools as 0/1)."""
     m = _KERNEL.search(mangled)
     if m is None:

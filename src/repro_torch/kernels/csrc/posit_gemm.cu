@@ -60,6 +60,17 @@
 //   first kernel does; ragged M and N are masked here, with 16-byte stores
 //   where the row allows.
 //
+// * Batches.  A leading batch axis (the reference vmaps the Pallas call,
+//   which gives the TPU kernel a batch grid axis) is blockIdx.z of the
+//   GEMM, with a batch stride for the output; the planes of matrix z lie
+//   one after another.  The pre-pass folds the batch into its z axis as
+//   2 * matrix + operand, so a batch of B products is two launches, as
+//   one product is.  Each matrix's outputs are the 2-D launch's bits.
+//   The batch offsets are a template flag (BATCHED), set only for
+//   launches of more than one matrix: with them always compiled in, the
+//   2-D kernel had more instructions and ran slower (PERF.md §6, timed by
+//   tools/gemm_ab.py), so a 2-D launch runs the unbatched code.
+//
 // Where it stands (chip_smoke.py, H100 80GB HBM3, 700 W): 0.146 ms for the
 // p32e2 split3 f32 form at (4032, 64, 4032), pre-pass included: 64 % of
 // the FFMA bound.  Moving the cross terms to bf16 tensor cores would lower
@@ -100,37 +111,39 @@ constexpr int kSmemBytes =
     NSTAGE * (NBITS > 16 ? 2 : 1) * BK * (BM + BN) * (int)sizeof(float);
 
 struct PlaneArgs {
-  const int32_t *a, *b;          // A[M, K], B[K, N] with element strides
-  int64_t sa0, sa1, sb0, sb1;
+  const int32_t *a, *b;          // A[Z, M, K], B[Z, K, N], element strides
+  int64_t saz, sa0, sa1, sbz, sb0, sb1;
   float *a_hi, *a_lo, *b_hi, *b_lo;   // lo: null for <= 16-bit formats
   int m, n, k, k_pad, lda, ldb;
 };
 
 struct GemmArgs {
   const float *a_hi, *a_lo, *b_hi, *b_lo;   // planes of decode_planes
-  void *c;                       // C[M, N], leading dimension ldc
+  void *c;                       // C[Z, M, N]: batch stride scz, rows ldc
   int m, n, k, k_pad, lda, ldb;
-  int64_t ldc;
+  int64_t scz, ldc;
   int kc, negate;
 };
 
 // Plane row r of A holds A[:, r] (so sr = sa1, sc = sa0); of B, B[r, :].
-// blockIdx.z picks the operand, (y, x) a 32 x 32 tile of its plane.  The
-// tile goes through shared memory so that reads follow the source's unit
-// stride and writes the plane's.
+// blockIdx.z is 2 * matrix + operand, (y, x) a 32 x 32 tile of the
+// plane.  The tile goes through shared memory so that reads follow the
+// source's unit stride and writes the plane's.
 template <int NBITS, int ES>
 __global__ void __launch_bounds__(256) decode_planes_kernel(const PlaneArgs p) {
   constexpr bool HAS_LO = NBITS > 16;
   __shared__ float t_hi[PT][PT + 1];
   __shared__ float t_lo[HAS_LO ? PT : 1][PT + 1];
-  const bool is_a = blockIdx.z == 0;
-  const int32_t *src = is_a ? p.a : p.b;
+  const bool is_a = blockIdx.z % 2 == 0;
+  const int64_t z = blockIdx.z / 2;
+  const int32_t *src = is_a ? p.a + z * p.saz : p.b + z * p.sbz;
   const int cols = is_a ? p.m : p.n;
   const int ld = is_a ? p.lda : p.ldb;
   const int64_t sr = is_a ? p.sa1 : p.sb0;
   const int64_t sc = is_a ? p.sa0 : p.sb1;
-  float *hi = is_a ? p.a_hi : p.b_hi;
-  float *lo = is_a ? p.a_lo : p.b_lo;
+  const int64_t plane = z * p.k_pad * ld;    // planes of matrix z
+  float *hi = (is_a ? p.a_hi : p.b_hi) + plane;
+  float *lo = HAS_LO ? (is_a ? p.a_lo : p.b_lo) + plane : nullptr;
   const int r0 = blockIdx.y * PT, c0 = blockIdx.x * PT;
   if (r0 >= p.k_pad || c0 >= ld) return;
   const int tx = threadIdx.x % PT, ty = threadIdx.x / PT;
@@ -183,8 +196,10 @@ __device__ __forceinline__ void fold(float &acc, float &err, float ph,
 }
 
 // SINGLE: K fits one chunk (k_pad <= kc), so the only fold is the last,
-// done in the epilogue from acc = err = +0.
-template <int NBITS, int ES, bool COMP, bool SINGLE, bool EMIT>
+// done in the epilogue from acc = err = +0.  BATCHED: matrix blockIdx.z of
+// a batch, whose planes are rows z * k_pad onward of the batch's planes
+// (a row offset of the loads) and whose output starts z * scz on.
+template <int NBITS, int ES, bool COMP, bool SINGLE, bool EMIT, bool BATCHED>
 __global__ void __launch_bounds__(THREADS,
                                   kMinBlocks<(NBITS > 16), COMP, SINGLE>)
 posit_gemm_kernel(const GemmArgs g) {
@@ -203,10 +218,12 @@ posit_gemm_kernel(const GemmArgs g) {
   const int tx = tid % 8, ty = tid / 8;
   const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
   const int nk = g.k_pad / BK;
+  const int64_t kz = BATCHED ? (int64_t)blockIdx.z * g.k_pad : 0;
+  const int64_t cz = BATCHED ? blockIdx.z * g.scz : 0;
 
   auto load_stage = [&](int kt) {
     const int slot = kt % NSTAGE;
-    const int64_t k0 = (int64_t)kt * BK;
+    const int64_t k0 = kz + (int64_t)kt * BK;
 #pragma unroll
     for (int t = 0; t < SA / 4 / THREADS; ++t) {
       const int f = tid + t * THREADS;
@@ -322,7 +339,7 @@ posit_gemm_kernel(const GemmArgs g) {
       int32_t w[TN];
 #pragma unroll
       for (int j = 0; j < TN; ++j) w[j] = encode_posit<NBITS, ES>(v[j]);
-      int32_t *out = static_cast<int32_t *>(g.c) + gr * g.ldc + gc;
+      int32_t *out = static_cast<int32_t *>(g.c) + cz + gr * g.ldc + gc;
       if (vec && gc + 3 < g.n) {
         *reinterpret_cast<int4 *>(out) = make_int4(w[0], w[1], w[2], w[3]);
       } else {
@@ -331,7 +348,7 @@ posit_gemm_kernel(const GemmArgs g) {
           if (gc + j < g.n) out[j] = w[j];
       }
     } else {
-      float *out = static_cast<float *>(g.c) + gr * g.ldc + gc;
+      float *out = static_cast<float *>(g.c) + cz + gr * g.ldc + gc;
       if (vec && gc + 3 < g.n) {
         *reinterpret_cast<float4 *>(out) = make_float4(v[0], v[1], v[2], v[3]);
       } else {
@@ -343,8 +360,8 @@ posit_gemm_kernel(const GemmArgs g) {
   }
 }
 
-template <int NBITS, int ES, bool COMP, bool SINGLE, bool EMIT>
-cudaError_t launch_tiled(const GemmArgs &g, cudaStream_t s) {
+template <int NBITS, int ES, bool COMP, bool SINGLE, bool EMIT, bool BATCHED>
+cudaError_t launch_kernel(const GemmArgs &g, int batch, cudaStream_t s) {
   constexpr int bytes = kSmemBytes<NBITS>;
   // Once per device (not inside a CUDA graph capture after the first call).
   static bool attr_set[64] = {};
@@ -352,49 +369,59 @@ cudaError_t launch_tiled(const GemmArgs &g, cudaStream_t s) {
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= 64 || !attr_set[dev]) {
-    e = cudaFuncSetAttribute(posit_gemm_kernel<NBITS, ES, COMP, SINGLE, EMIT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
+    e = cudaFuncSetAttribute(
+        posit_gemm_kernel<NBITS, ES, COMP, SINGLE, EMIT, BATCHED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     if (dev >= 0 && dev < 64) attr_set[dev] = true;
   }
-  const dim3 grid((g.n + BN - 1) / BN, (g.m + BM - 1) / BM);
+  const dim3 grid((g.n + BN - 1) / BN, (g.m + BM - 1) / BM, batch);
   POSIT_LAUNCH(grid, THREADS, bytes, s,
-               posit_gemm_kernel<NBITS, ES, COMP, SINGLE, EMIT>)(g);
+               posit_gemm_kernel<NBITS, ES, COMP, SINGLE, EMIT, BATCHED>)(g);
   return cudaGetLastError();
+}
+
+template <int NBITS, int ES, bool COMP, bool SINGLE, bool EMIT>
+cudaError_t launch_tiled(const GemmArgs &g, int batch, cudaStream_t s) {
+  if (batch > 1)
+    return launch_kernel<NBITS, ES, COMP, SINGLE, EMIT, true>(g, batch, s);
+  return launch_kernel<NBITS, ES, COMP, SINGLE, EMIT, false>(g, batch, s);
 }
 
 // The f32-out kernel depends on the format only through its lo planes.
 template <int NBITS, int ES, bool COMP, bool SINGLE>
-cudaError_t launch_form(const GemmArgs &g, bool emit, cudaStream_t s) {
-  if (emit) return launch_tiled<NBITS, ES, COMP, SINGLE, true>(g, s);
+cudaError_t launch_form(const GemmArgs &g, int batch, bool emit,
+                        cudaStream_t s) {
+  if (emit) return launch_tiled<NBITS, ES, COMP, SINGLE, true>(g, batch, s);
   if constexpr (NBITS > 16)
-    return launch_tiled<32, 2, COMP, SINGLE, false>(g, s);
+    return launch_tiled<32, 2, COMP, SINGLE, false>(g, batch, s);
   else
-    return launch_tiled<16, 1, COMP, SINGLE, false>(g, s);
+    return launch_tiled<16, 1, COMP, SINGLE, false>(g, batch, s);
 }
 
 template <int NBITS, int ES>
-cudaError_t launch_gemm(const GemmArgs &g, bool comp, bool emit,
+cudaError_t launch_gemm(const GemmArgs &g, int batch, bool comp, bool emit,
                         cudaStream_t s) {
   const bool single = g.k_pad <= g.kc;
   if (comp)
-    return single ? launch_form<NBITS, ES, true, true>(g, emit, s)
-                  : launch_form<NBITS, ES, true, false>(g, emit, s);
-  return single ? launch_form<NBITS, ES, false, true>(g, emit, s)
-                : launch_form<NBITS, ES, false, false>(g, emit, s);
+    return single ? launch_form<NBITS, ES, true, true>(g, batch, emit, s)
+                  : launch_form<NBITS, ES, true, false>(g, batch, emit, s);
+  return single ? launch_form<NBITS, ES, false, true>(g, batch, emit, s)
+                : launch_form<NBITS, ES, false, false>(g, batch, emit, s);
 }
 
 template <int NBITS, int ES>
-cudaError_t launch_planes(const PlaneArgs &p, cudaStream_t s) {
+cudaError_t launch_planes(const PlaneArgs &p, int batch, cudaStream_t s) {
   const int ld = p.lda > p.ldb ? p.lda : p.ldb;
-  const dim3 grid((ld + PT - 1) / PT, (p.k_pad + PT - 1) / PT, 2);
+  const dim3 grid((ld + PT - 1) / PT, (p.k_pad + PT - 1) / PT, 2 * batch);
   POSIT_LAUNCH(grid, 256, 0, s, decode_planes_kernel<NBITS, ES>)(p);
   return cudaGetLastError();
 }
 
-bool plane_dims_ok(int m, int n, int k, int k_pad, int lda, int ldb) {
-  return m >= 0 && n >= 0 && k > 0 && k_pad == (k + BK - 1) / BK * BK &&
+bool plane_dims_ok(int batch, int m, int n, int k, int k_pad, int lda,
+                   int ldb) {
+  return batch >= 1 && batch <= 65535 / 2 && m >= 0 && n >= 0 && k > 0 &&
+         k_pad == (k + BK - 1) / BK * BK &&
          lda >= m && lda % 4 == 0 && ldb >= n && ldb % 4 == 0 &&
          (k_pad + PT - 1) / PT <= 65535;
 }
@@ -405,58 +432,64 @@ bool plane_dims_ok(int m, int n, int k, int k_pad, int lda, int ldb) {
 // returns the cudaError_t of its launch (0 on success); 1001 flags an
 // unknown format, 1002 bad arguments.
 
-// Decode A[M, K] and B[K, N] (element strides sa0, sa1, sb0, sb1) into the
-// GEMM's planes: a_* is [k_pad, lda] (A transposed), b_* is [k_pad, ldb],
-// k_pad = K rounded up to 16, lda >= M and ldb >= N multiples of 4, zeros
-// beyond the operands.  a_lo and b_lo are not touched for <= 16-bit formats.
+// Decode a batch of A[M, K] and B[K, N] (element strides saz, sa0, sa1 and
+// sbz, sb0, sb1; the z strides step from matrix to matrix) into the GEMM's
+// planes: per matrix, a_* is [k_pad, lda] (A transposed) and b_* is
+// [k_pad, ldb], k_pad = K rounded up to 16, lda >= M and ldb >= N
+// multiples of 4, zeros beyond the operands; the batch's planes lie one
+// after another.  a_lo and b_lo are not touched for <= 16-bit formats.
 extern "C" int posit_decode_planes_launch(
-    const void *a, const void *b, int m, int n, int k, int64_t sa0,
-    int64_t sa1, int64_t sb0, int64_t sb1, void *a_hi, void *a_lo,
-    void *b_hi, void *b_lo, int k_pad, int lda, int ldb, int fmt,
-    void *stream) {
-  if (!plane_dims_ok(m, n, k, k_pad, lda, ldb) || (lda == 0 && ldb == 0))
+    const void *a, const void *b, int batch, int m, int n, int k,
+    int64_t saz, int64_t sa0, int64_t sa1, int64_t sbz, int64_t sb0,
+    int64_t sb1, void *a_hi, void *a_lo, void *b_hi, void *b_lo, int k_pad,
+    int lda, int ldb, int fmt, void *stream) {
+  if (!plane_dims_ok(batch, m, n, k, k_pad, lda, ldb) ||
+      (lda == 0 && ldb == 0))
     return 1002;
   if (fmt == 0 && (a_lo == nullptr || b_lo == nullptr)) return 1002;
   const PlaneArgs p{static_cast<const int32_t *>(a),
-                    static_cast<const int32_t *>(b), sa0, sa1, sb0, sb1,
+                    static_cast<const int32_t *>(b), saz, sa0, sa1, sbz, sb0,
+                    sb1,
                     static_cast<float *>(a_hi), static_cast<float *>(a_lo),
                     static_cast<float *>(b_hi), static_cast<float *>(b_lo),
                     m, n, k, k_pad, lda, ldb};
   auto s = static_cast<cudaStream_t>(stream);
   switch (fmt) {
-    case 0: return launch_planes<32, 2>(p, s);
-    case 1: return launch_planes<16, 1>(p, s);
-    case 2: return launch_planes<8, 2>(p, s);
-    case 3: return launch_planes<8, 0>(p, s);
+    case 0: return launch_planes<32, 2>(p, batch, s);
+    case 1: return launch_planes<16, 1>(p, batch, s);
+    case 2: return launch_planes<8, 2>(p, batch, s);
+    case 3: return launch_planes<8, 0>(p, batch, s);
     default: return 1001;
   }
 }
 
-// C[M, N] (leading dimension ldc) = ±(A @ B) from the planes of
+// For each matrix z of the batch, C[z] = ±(A[z] @ B[z]) from the planes of
 // posit_decode_planes_launch, K summed in chunks of kc (a multiple of 16);
-// f32 out, or posit words of format fmt when emit_posit.
+// C[z] starts at c + z * scz (elements), rows ldc apart; f32 out, or posit
+// words of format fmt when emit_posit.
 extern "C" int posit_gemm_launch(const void *a_hi, const void *a_lo,
                                  const void *b_hi, const void *b_lo, void *c,
-                                 int m, int n, int k, int k_pad, int lda,
-                                 int ldb, int64_t ldc, int fmt,
-                                 int compensated, int emit_posit, int negate,
-                                 int kc, void *stream) {
-  if (m <= 0 || n <= 0 || !plane_dims_ok(m, n, k, k_pad, lda, ldb) ||
-      ldc < n || kc <= 0 || kc % BK != 0 || (m + BM - 1) / BM > 65535)
+                                 int batch, int m, int n, int k, int k_pad,
+                                 int lda, int ldb, int64_t scz, int64_t ldc,
+                                 int fmt, int compensated, int emit_posit,
+                                 int negate, int kc, void *stream) {
+  if (m <= 0 || n <= 0 || !plane_dims_ok(batch, m, n, k, k_pad, lda, ldb) ||
+      ldc < n || (batch > 1 && scz < (int64_t)(m - 1) * ldc + n) ||
+      kc <= 0 || kc % BK != 0 || (m + BM - 1) / BM > 65535)
     return 1002;
   if (fmt == 0 && (a_lo == nullptr || b_lo == nullptr)) return 1002;
   const GemmArgs g{static_cast<const float *>(a_hi),
                    static_cast<const float *>(a_lo),
                    static_cast<const float *>(b_hi),
                    static_cast<const float *>(b_lo), c, m, n, k, k_pad, lda,
-                   ldb, ldc, kc, negate};
+                   ldb, scz, ldc, kc, negate};
   auto s = static_cast<cudaStream_t>(stream);
   const bool comp = compensated != 0, emit = emit_posit != 0;
   switch (fmt) {
-    case 0: return launch_gemm<32, 2>(g, comp, emit, s);
-    case 1: return launch_gemm<16, 1>(g, comp, emit, s);
-    case 2: return launch_gemm<8, 2>(g, comp, emit, s);
-    case 3: return launch_gemm<8, 0>(g, comp, emit, s);
+    case 0: return launch_gemm<32, 2>(g, batch, comp, emit, s);
+    case 1: return launch_gemm<16, 1>(g, batch, comp, emit, s);
+    case 2: return launch_gemm<8, 2>(g, batch, comp, emit, s);
+    case 3: return launch_gemm<8, 0>(g, batch, comp, emit, s);
     default: return 1001;
   }
 }

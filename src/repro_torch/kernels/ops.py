@@ -29,6 +29,14 @@ Backends, under the reference's names:
 Beta semantics: beta == 0 means C is NOT referenced on every backend
 except ``faithful``, whose literal per-op chain computes 0 * C first.
 The reference's observability hooks wait for ROADMAP A8.
+
+Batches: A (B, M, K) and B (B, K, N) (``trans_*`` transposes the last two
+axes, as a view) give (B, M, N), each matrix the 2-D call's words, where
+the reference ``vmap``s its program.  ``pallas_split3*`` is one pre-pass
+and one kernel launch for the whole batch, ``xla_quire`` one batched f64
+matmul (its sums may be ordered otherwise than the 2-D call's, within the
+same bound), ``faithful`` broadcasts, and ``quire_exact``, plain
+PyTorch, runs the matrices in turn.
 """
 from __future__ import annotations
 
@@ -64,17 +72,19 @@ def rgemm(a_p: torch.Tensor, b_p: torch.Tensor,
     a_p = a_p.to(torch.int32)
     b_p = b_p.to(torch.int32)
     if trans_a:
-        a_p = a_p.T
+        a_p = a_p.mT
     if trans_b:
-        b_p = b_p.T
-    m = a_p.shape[0]
-    n = b_p.shape[1]
+        b_p = b_p.mT
     dev = a_p.device
     alpha_p = _scalar_posit(alpha, fmt, dev)
     beta_p = _scalar_posit(beta, fmt, dev)
     if c_p is None:
-        c_p = torch.zeros((m, n), dtype=torch.int32, device=dev)
+        c_p = torch.zeros((*a_p.shape[:-1], b_p.shape[-1]),
+                          dtype=torch.int32, device=dev)
 
+    if backend == "quire_exact" and a_p.dim() == 3:
+        return torch.stack([rgemm(a, b, c, alpha, beta, backend=backend,
+                                  fmt=fmt) for a, b, c in zip(a_p, b_p, c_p)])
     if backend == "quire_exact":
         # Fold alpha/beta so the common BLAS-3 updates stay single-rounding:
         # |alpha| == 1 -> exact product negation; beta == 1 -> exact quire

@@ -30,6 +30,12 @@ Two implementations of every function live here:
   are ordered by the library's matmul, so the GEMM is held to the
   reference's error bound, not to its bits.
 
+The GEMM wrappers also take a batch: operands (B, M, K) and (B, K, N)
+give (B, M, N), in one pre-pass and one GEMM launch on the card (the
+reference ``vmap``s its Pallas call, which gives the TPU kernel a batch
+grid axis); each matrix's output is the 2-D call's.  The simple kernel
+takes 2-D operands only.
+
 For a CUDA tensor a wrapper launches its kernel or raises; it never falls
 back.  Each wrapper counts its kernel launches in ``<wrapper>.launches``.
 Unlike the TPU kernel, no shape needs padding: the kernels mask ragged
@@ -152,7 +158,9 @@ def encode_posit_f32_plain(x: torch.Tensor,
 
 
 def _check_operands(a_p, b_p):
-    if a_p.dim() != 2 or b_p.dim() != 2 or a_p.shape[1] != b_p.shape[0]:
+    if (a_p.dim() not in (2, 3) or b_p.dim() != a_p.dim()
+            or a_p.shape[:-2] != b_p.shape[:-2]
+            or a_p.shape[-1] != b_p.shape[-2]):
         raise ValueError(f"bad GEMM shapes {tuple(a_p.shape)} @ "
                          f"{tuple(b_p.shape)}")
     if a_p.dtype != torch.int32 or b_p.dtype != torch.int32:
@@ -176,8 +184,14 @@ def posit_gemm_f32_plain(a_p: torch.Tensor, b_p: torch.Tensor, *,
                          fmt: PositFormat = P32E2) -> torch.Tensor:
     """Plain version of the kernel's f32-accumulator GEMM: the tile
     dataflow (per bk chunk: hi/lo products, f32 sums, TwoSum for
-    ``split3_comp``) with the chunk products done by ``torch.matmul``."""
+    ``split3_comp``) with the chunk products done by ``torch.matmul``.  A
+    batch runs its matrices in turn, so that each gets the 2-D call's
+    sums (a batched matmul may order them otherwise)."""
     _check_gemm_args(a_p, b_p, bk, mode)
+    if a_p.dim() == 3:
+        return torch.stack([posit_gemm_f32_plain(a, b, bk=bk, mode=mode,
+                                                 fmt=fmt)
+                            for a, b in zip(a_p, b_p)])
     ah, al = decode_split_f32_plain(a_p, fmt)
     bh, bl = decode_split_f32_plain(b_p, fmt)
     m, k = a_p.shape
@@ -209,11 +223,12 @@ def posit_gemm_plain(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
 class Planes(NamedTuple):
     """The decoded operands as the tiled GEMM kernel reads them: K-major
     f32 planes, K padded to ``KERNEL_BK`` rows and the leading dimension
-    to ``PLANE_ALIGN`` floats, zeros beyond the operands.  The lo planes
-    are None for formats of <= 16 bits (they would be all zero)."""
-    a_hi: torch.Tensor                  # (k_pad, lda): A transposed
+    to ``PLANE_ALIGN`` floats, zeros beyond the operands, with the
+    operands' batch axis in front.  The lo planes are None for formats of
+    <= 16 bits (they would be all zero)."""
+    a_hi: torch.Tensor                  # ([B,] k_pad, lda): A transposed
     a_lo: torch.Tensor | None
-    b_hi: torch.Tensor                  # (k_pad, ldb)
+    b_hi: torch.Tensor                  # ([B,] k_pad, ldb)
     b_lo: torch.Tensor | None
 
 
@@ -229,17 +244,17 @@ def decode_planes_plain(a_p: torch.Tensor, b_p: torch.Tensor,
     """Plain version of the decode pre-pass: ``decode_split_f32_plain`` of
     A (transposed) and B, laid out as ``Planes``."""
     _check_operands(a_p, b_p)
-    m, k = a_p.shape
-    k_pad, lda, ldb = plane_layout(m, k, b_p.shape[1])
+    m, k = a_p.shape[-2:]
+    k_pad, lda, ldb = plane_layout(m, k, b_p.shape[-1])
 
     def plane(x, ld):
-        out = x.new_zeros((k_pad, ld))
-        out[:x.shape[0], :x.shape[1]] = x
+        out = x.new_zeros((*x.shape[:-2], k_pad, ld))
+        out[..., :x.shape[-2], :x.shape[-1]] = x
         return out
     ah, al = decode_split_f32_plain(a_p, fmt)
     bh, bl = decode_split_f32_plain(b_p, fmt)
     lo = fmt.nbits > 16
-    return Planes(plane(ah.T, lda), plane(al.T, lda) if lo else None,
+    return Planes(plane(ah.mT, lda), plane(al.mT, lda) if lo else None,
                   plane(bh, ldb), plane(bl, ldb) if lo else None)
 
 
@@ -268,31 +283,42 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _batch_strides(t: torch.Tensor):
+    """(batch, batch stride, row stride, column stride) of a 2-D or 3-D
+    operand."""
+    if t.dim() == 2:
+        return (1, 0, *t.stride())
+    return (t.shape[0], *t.stride())
+
+
 def decode_planes(a_p: torch.Tensor, b_p: torch.Tensor,
                   fmt: PositFormat = P32E2) -> Planes:
-    """The GEMM's decode pre-pass: A and B (any strides) -> ``Planes``.
+    """The GEMM's decode pre-pass: A and B ([B,] any strides) ->
+    ``Planes``.
 
-    CUDA tensors: one launch decodes both operands; CPU tensors: the plain
-    version."""
+    CUDA tensors: one launch decodes both operands of every matrix; CPU
+    tensors: the plain version."""
     _check_operands(a_p, b_p)
     if not a_p.is_cuda:
         return decode_planes_plain(a_p, b_p, fmt)
-    m, k = a_p.shape
-    n = b_p.shape[1]
+    m, k = a_p.shape[-2:]
+    n = b_p.shape[-1]
     k_pad, lda, ldb = plane_layout(m, k, n)
     lo = fmt.nbits > 16
 
     def plane(ld):
-        return torch.empty((k_pad, ld), dtype=torch.float32,
+        return torch.empty((*a_p.shape[:-2], k_pad, ld), dtype=torch.float32,
                            device=a_p.device)
     planes = Planes(plane(lda), plane(lda) if lo else None, plane(ldb),
                     plane(ldb) if lo else None)
-    if k == 0 or lda + ldb == 0:
+    batch, saz, sa0, sa1 = _batch_strides(a_p)
+    _, sbz, sb0, sb1 = _batch_strides(b_p)
+    if k == 0 or lda + ldb == 0 or batch == 0:
         return planes
     with torch.cuda.device(a_p.device):
         rc = _build.lib().posit_decode_planes_launch(
-            a_p.data_ptr(), b_p.data_ptr(), m, n, k, *a_p.stride(),
-            *b_p.stride(), *map(_ptr, planes), k_pad, lda, ldb,
+            a_p.data_ptr(), b_p.data_ptr(), batch, m, n, k, saz, sa0, sa1,
+            sbz, sb0, sb1, *map(_ptr, planes), k_pad, lda, ldb,
             FMT_IDS[fmt.name], _stream(a_p))
     _raise_on(rc, "decode_planes")
     decode_planes.launches += 1
@@ -300,25 +326,26 @@ def decode_planes(a_p: torch.Tensor, b_p: torch.Tensor,
 
 
 def _gemm_out(a_p, b_p, emit_posit):
-    """The output of an (m, k) @ (k, n) launch; zeros (posit zero words)
-    when K is empty, where no kernel runs."""
-    shape = (a_p.shape[0], b_p.shape[1])
+    """The output of a ([B,] m, k) @ ([B,] k, n) launch; zeros (posit zero
+    words) when K is empty, where no kernel runs."""
+    shape = (*a_p.shape[:-1], b_p.shape[-1])
     dtype = torch.int32 if emit_posit else torch.float32
-    if a_p.shape[1] == 0:
+    if a_p.shape[-1] == 0:
         return torch.zeros(shape, device=a_p.device, dtype=dtype)
     return torch.empty(shape, device=a_p.device, dtype=dtype)
 
 
 def _launch_gemm(a_p, b_p, *, bk, mode, emit_posit, negate, fmt):
     out = _gemm_out(a_p, b_p, emit_posit)
-    if out.numel() == 0 or a_p.shape[1] == 0:
+    if out.numel() == 0 or a_p.shape[-1] == 0:
         return out
     planes = decode_planes(a_p, b_p, fmt)
-    (m, k), n = a_p.shape, b_p.shape[1]
+    (m, k), n = a_p.shape[-2:], b_p.shape[-1]
+    batch = a_p.shape[0] if a_p.dim() == 3 else 1
     with torch.cuda.device(a_p.device):
         rc = _build.lib().posit_gemm_launch(
-            *map(_ptr, planes), out.data_ptr(), m, n, k,
-            *plane_layout(m, k, n), n, FMT_IDS[fmt.name],
+            *map(_ptr, planes), out.data_ptr(), batch, m, n, k,
+            *plane_layout(m, k, n), m * n, n, FMT_IDS[fmt.name],
             int(mode == "split3_comp"), int(emit_posit), int(negate), bk,
             _stream(a_p))
     _raise_on(rc, "posit_gemm")
@@ -327,6 +354,9 @@ def _launch_gemm(a_p, b_p, *, bk, mode, emit_posit, negate, fmt):
 
 
 def _launch_simple(a_p, b_p, *, bk, mode, emit_posit, negate, fmt):
+    if a_p.dim() != 2:
+        raise ValueError("the simple kernel takes 2-D operands, got "
+                         f"{tuple(a_p.shape)}")
     out = _gemm_out(a_p, b_p, emit_posit)
     if out.numel() == 0 or a_p.shape[1] == 0:
         return out
@@ -347,11 +377,11 @@ def _launch_simple(a_p, b_p, *, bk, mode, emit_posit, negate, fmt):
 def posit_gemm_f32(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
                    mode: str = "split3",
                    fmt: PositFormat = P32E2) -> torch.Tensor:
-    """(M,K) @ (K,N) over int32 posit words -> f32 accumulator.
+    """([B,] M,K) @ ([B,] K,N) over int32 posit words -> f32 accumulator.
 
     CUDA tensors: the decode pre-pass and the tiled Hopper kernel (one
-    launch each); CPU tensors: the plain version.  ``bk`` is the
-    accumulation chunk (a multiple of 16)."""
+    launch each, for the whole batch); CPU tensors: the plain version.
+    ``bk`` is the accumulation chunk (a multiple of 16)."""
     _check_gemm_args(a_p, b_p, bk, mode)
     if not a_p.is_cuda:
         return posit_gemm_f32_plain(a_p, b_p, bk=bk, mode=mode, fmt=fmt)
@@ -362,8 +392,9 @@ def posit_gemm_f32(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
 def posit_gemm(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
                mode: str = "split3", negate: bool = False,
                fmt: PositFormat = P32E2) -> torch.Tensor:
-    """(M,K) @ (K,N) posit words -> posit words, encode fused in-kernel
-    (``negate`` flips the sign exactly first: the BLAS alpha=-1 form).
+    """([B,] M,K) @ ([B,] K,N) posit words -> posit words, encode fused
+    in-kernel (``negate`` flips the sign exactly first: the BLAS alpha=-1
+    form).
     Bit-identical to ``encode_posit_f32(±posit_gemm_f32(...))``."""
     _check_gemm_args(a_p, b_p, bk, mode)
     if not a_p.is_cuda:

@@ -18,24 +18,26 @@ from repro_torch.core.formats import P32E2, PositFormat
 def rgemm_faithful_chain(a_p: torch.Tensor, b_p: torch.Tensor,
                          c0_p: torch.Tensor | None = None,
                          fmt: PositFormat = P32E2) -> torch.Tensor:
-    """(M,K) x (K,N) posit-word matmul with per-MAC posit rounding,
-    starting from ``c0_p`` (BLAS: beta*C) and running k = 0..K-1.
+    """([B,] M,K) x ([B,] K,N) posit-word matmul with per-MAC posit
+    rounding, starting from ``c0_p`` (BLAS: beta*C) and running
+    k = 0..K-1.
 
     Runs in fused-chain form: values stay in f64 between ops and every
     op is rounded with ``chain_round``, which gives the same words as the
     reference's per-op fast-backend ``mul``/``add`` (a word round-trip is
     ``chain_round``, pinned in the tests)."""
-    m, k = a_p.shape
-    k2, n = b_p.shape
-    if k != k2:
+    k = a_p.shape[-1]
+    if k != b_p.shape[-2] or a_p.shape[:-2] != b_p.shape[:-2]:
         raise ValueError(f"bad shapes {tuple(a_p.shape)} @ {tuple(b_p.shape)}")
     if c0_p is None:
-        c0_p = torch.zeros((m, n), dtype=torch.int32, device=a_p.device)
+        c0_p = torch.zeros((*a_p.shape[:-1], b_p.shape[-1]),
+                           dtype=torch.int32, device=a_p.device)
     av = posit.chain_decode(a_p, fmt)
     bv = posit.chain_decode(b_p, fmt)
     c = posit.chain_decode(c0_p, fmt)
     for kk in range(k):
-        prod = posit.chain_mul(av[:, kk, None], bv[None, kk, :], fmt)
+        prod = posit.chain_mul(av[..., :, kk, None], bv[..., None, kk, :],
+                               fmt)
         c = posit.chain_add(c, prod, fmt)
     return posit.chain_encode(c, fmt)
 

@@ -4,12 +4,17 @@ plus binary32 counterparts (counterpart of ``repro.lapack.solve``).
 ``quire=True`` switches the substitution sweeps to the quire-exact
 variants (one rounding per solved component; lapack/blas.py), the
 building block of the iterative-refinement drivers in lapack/refine.py.
+
+The plain solves also take a leading batch axis (factors (B, n, n),
+right-hand sides (B, n)), where the reference ``vmap``s them; the quire
+sweeps are 2-D (the refinement drivers loop over matrices).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.formats import P32E2, PositFormat
+from repro_torch.lapack.decomp import permute_rows, swap_perm
 from repro_torch.lapack.blas import (rtrsv_lower, rtrsv_lower_quire,
                                      rtrsv_upper, rtrsv_upper_quire)
 
@@ -34,17 +39,14 @@ def rpotrs(l_p: torch.Tensor, b_p: torch.Tensor, quire: bool = False,
     """Solve (L L^T) x = b in posit: forward then backward substitution."""
     lower, upper = _sweeps(quire)
     y = lower(l_p, b_p, unit_diag=False, fmt=fmt)
-    return upper(l_p.T, y, unit_diag=False, fmt=fmt)
+    return upper(l_p.mT, y, unit_diag=False, fmt=fmt)
 
 
 def rgetrs(lu_p: torch.Tensor, ipiv: torch.Tensor, b_p: torch.Tensor,
            quire: bool = False, fmt: PositFormat = P32E2) -> torch.Tensor:
     """Solve (P L U) x = b in posit; ``ipiv`` 0-based, applied in order."""
     lower, upper = _sweeps(quire)
-    perm = list(range(b_p.shape[0]))
-    for k, p in enumerate(ipiv.tolist()):
-        perm[k], perm[p] = perm[p], perm[k]
-    b = b_p[torch.tensor(perm, device=b_p.device)]
+    b = permute_rows(b_p, swap_perm(ipiv, b_p.shape[-1]))
     y = lower(lu_p, b, unit_diag=True, fmt=fmt)
     return upper(lu_p, y, unit_diag=False, fmt=fmt)
 

@@ -242,3 +242,100 @@ def test_cuda_quire_matches_cpu(cuda_device, name):
     assert torch.equal(got.cpu(), TS.rtrtrs(m, rhs, lower=True,
                                             unit_diag=True, quire=True,
                                             fmt=fmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p32e2", "p16e1"])
+def test_cuda_batched_gemm_equals_per_matrix(cuda_device, name):
+    """One batched pre-pass + GEMM launch gives each matrix the 2-D
+    launch's bits: ragged K (below one 16-row stage), N = 1, a transposed
+    A; both modes, f32 and fused ±encode."""
+    fmt = TF.FORMATS[name]
+    rng = np.random.default_rng(19)
+
+    def words(shape):
+        return ti.posits(rng, shape, -4, 4, fmt, cuda_device)
+    cases = [(words((3, 150, 7)), words((3, 7, 70))),
+             (words((3, 260, 200)), words((3, 200, 1))),
+             (words((3, 40, 130)).mT, words((3, 40, 33)))]
+    for a, b in cases:
+        for mode in TG.MODES:
+            TG.reset_launch_counts()
+            got = TG.posit_gemm_f32(a, b, bk=16, mode=mode, fmt=fmt)
+            assert TG.launch_counts()["posit_gemm_f32"] == 1
+            assert TG.launch_counts()["decode_planes"] == 1
+            want = torch.stack([TG.posit_gemm_f32(a[i], b[i], bk=16,
+                                                  mode=mode, fmt=fmt)
+                                for i in range(3)])
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            for neg in (False, True):
+                got = TG.posit_gemm(a, b, bk=16, mode=mode, negate=neg,
+                                    fmt=fmt)
+                assert torch.equal(got, torch.stack([
+                    TG.posit_gemm(a[i], b[i], bk=16, mode=mode, negate=neg,
+                                  fmt=fmt) for i in range(3)]))
+
+
+@pytest.mark.cuda
+def test_cuda_qr_words_match_cpu(cuda_device):
+    """rgels with the faithful GEMM (separately rounded ops only): the
+    card's factors, tau and solution are the CPU's words."""
+    from repro_torch.lapack import qr as TQR
+    rng = np.random.default_rng(20)
+    a = ti.posits(rng, (30, 18), -1, 1)
+    b = ti.posits(rng, (30,), -1, 1)
+    xg, (qg, tg) = TQR.rgels(a.to(cuda_device), b.to(cuda_device), nb=8,
+                             gemm_backend="faithful")
+    xc, (qc, tc) = TQR.rgels(a, b, nb=8, gemm_backend="faithful")
+    assert torch.equal(xg.cpu(), xc) and torch.equal(qg.cpu(), qc)
+    assert torch.equal(tg.cpu(), tc)
+
+
+@pytest.mark.cuda
+def test_cuda_chain_sum_graph_matches_cpu(cuda_device):
+    """The chained scan replays a CUDA graph of one rounded add per step:
+    its values equal the CPU's eager scan bit for bit (vector, scalar and
+    matrix lanes; a cached graph reused), and potf2, which runs its column
+    chains through it, gives the CPU's words."""
+    from repro_torch.core.formats import P32E2
+    from repro_torch.lapack import blas as TB
+    from repro_torch.lapack import decomp as TD
+    rng = np.random.default_rng(21)
+
+    def vals(shape):
+        return TP.chain_decode(ti.posits(rng, shape, -6, 6))
+    for init, terms, dim in ((vals((7,)), vals((50, 7)), -2),
+                             (vals((1,))[0], vals((40,)), -1),
+                             (vals((5, 5)), vals((30, 5, 5)), -3),
+                             (vals((7,)), vals((9, 7)), -2)):
+        want = TB.chain_sum(init, terms, dim, P32E2)
+        got = TB.chain_sum(init.to(cuda_device), terms.to(cuda_device), dim,
+                           P32E2)
+        assert torch.equal(got.cpu().view(torch.int64),
+                           want.view(torch.int64))
+    x = rng.standard_normal((40, 40))
+    a = TP.from_float64(torch.from_numpy(x.T @ x))
+    assert torch.equal(TD.potf2(a.to(cuda_device)).cpu(), TD.potf2(a))
+
+
+@pytest.mark.cuda
+def test_cuda_chain_sum_graph_cache_bounded(cuda_device, monkeypatch):
+    """The scan's graph cache keeps at most ``_ADD_STEPS_MAX`` graphs, the
+    least recently used leaving first; scans before and after an eviction
+    (graphs sharing one memory pool) give the CPU's values."""
+    from collections import OrderedDict
+    from repro_torch.core.formats import P32E2
+    from repro_torch.lapack import blas as TB
+    monkeypatch.setattr(TB, "_ADD_STEPS_MAX", 2)
+    monkeypatch.setattr(TB, "_ADD_STEPS", OrderedDict())
+    rng = np.random.default_rng(23)
+    for width in (3, 4, 3, 5, 6, 4):
+        init = TP.chain_decode(ti.posits(rng, (width,), -6, 6))
+        terms = TP.chain_decode(ti.posits(rng, (20, width), -6, 6))
+        want = TB.chain_sum(init, terms, -2, P32E2)
+        got = TB.chain_sum(init.to(cuda_device), terms.to(cuda_device), -2,
+                           P32E2)
+        assert torch.equal(got.cpu().view(torch.int64),
+                           want.view(torch.int64))
+        assert len(TB._ADD_STEPS) <= 2
+        assert next(reversed(TB._ADD_STEPS))[0] == (width,)

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import host_kernels as hk
 import torch_inputs as ti
 from repro.core import formats as JF
 from repro.core import posit as JP
@@ -35,7 +36,6 @@ from repro.kernels import posit_gemm as JG
 from repro.kernels.ops import rgemm as j_rgemm
 from repro_torch.core import formats as TF
 from repro_torch.core import posit as TP
-from repro_torch.kernels import _build
 from repro_torch.kernels import posit_gemm as TG
 from repro_torch.kernels import ops as TO
 from repro_torch.kernels import ref as TR
@@ -414,61 +414,8 @@ def test_device_codec_source_matches_plain_on_host(tmp_path):
 @pytest.fixture(scope="module")
 def host_gemm_lib(tmp_path_factory):
     """csrc/posit_gemm.cu and csrc/posit_gemm_simple.cu built for the host
-    with g++ (csrc/launch.cuh's emulation: each block's CUDA threads are
-    fibers that yield at __syncthreads()), with the kernel library's C
-    entry points."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("g++ not available to build the kernels for the host")
-    out = tmp_path_factory.mktemp("host_gemm")
-    flags = ["-x", "c++", "-std=c++20", "-O1", "-fPIC", "-ffp-contract=off",
-             "-DPOSIT_CODEC_HOST", f"-I{CSRC}", "-Wall", "-Werror",
-             "-Wno-unknown-pragmas"]
-    objs = [out / f"{src}.o" for src in ("posit_gemm", "posit_gemm_simple")]
-    procs = [subprocess.Popen([gxx, *flags, "-c", "-o", str(obj),
-                               str(CSRC / f"{obj.stem}.cu")],
-                              stderr=subprocess.PIPE, text=True)
-             for obj in objs]
-    for p in procs:
-        assert p.wait(timeout=300) == 0, p.stderr.read()[-3000:]
-    lib_path = out / "libhost_gemm.so"
-    subprocess.run([gxx, "-shared", "-o", str(lib_path), *map(str, objs)],
-                   check=True, timeout=120)
-    return _build.bind(ctypes.CDLL(str(lib_path)))
-
-
-def _np_ptr(x):
-    return None if x is None else x.ctypes.data
-
-
-def _host_tiled(lib, a, b, fmt, kc, mode, emit, negate):
-    """The pre-pass and the tiled kernel on numpy operands (any strides)."""
-    (m, k), n = a.shape, b.shape[1]
-    k_pad, lda, ldb = TG.plane_layout(m, k, n)
-    lo = fmt.nbits > 16
-    planes = [np.full((k_pad, ld), np.nan, np.float32) if lo or i % 2 == 0
-              else None for i, ld in enumerate((lda, lda, ldb, ldb))]
-    assert lib.posit_decode_planes_launch(
-        _np_ptr(a), _np_ptr(b), m, n, k, *(s // 4 for s in a.strides),
-        *(s // 4 for s in b.strides), *map(_np_ptr, planes), k_pad, lda,
-        ldb, TG.FMT_IDS[fmt.name], None) == 0
-    out = np.full((m, n), -1, np.int32 if emit else np.float32)
-    assert lib.posit_gemm_launch(
-        *map(_np_ptr, planes), out.ctypes.data, m, n, k, k_pad, lda, ldb, n,
-        TG.FMT_IDS[fmt.name], int(mode == "split3_comp"), int(emit),
-        int(negate), kc, None) == 0
-    return out, planes
-
-
-def _host_simple(lib, a, b, fmt, kc, mode, emit, negate):
-    a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
-    (m, k), n = a.shape, b.shape[1]
-    out = np.full((m, n), -1, np.int32 if emit else np.float32)
-    assert lib.posit_gemm_simple_launch(
-        a.ctypes.data, b.ctypes.data, out.ctypes.data, m, n, k, k, n, n,
-        TG.FMT_IDS[fmt.name], int(mode == "split3_comp"), int(emit),
-        int(negate), kc, None) == 0
-    return out
+    with g++ (tests/host_kernels.py)."""
+    return hk.build_host_gemm_lib(tmp_path_factory.mktemp("host_gemm"))
 
 
 @pytest.mark.parametrize("name", FMTS)
@@ -497,7 +444,7 @@ def test_tiled_kernel_source_bit_identical_to_simple_on_host(host_gemm_lib,
     a, b = ti.cancelling_operands(rng, 37, 96, 41, fmt)
     cases += [(a.numpy(), b.numpy(), kc) for kc in (32, 128)]
     for a, b, kc in cases:
-        _, planes = _host_tiled(lib, a, b, fmt, kc, "split3", False, False)
+        _, planes = hk.host_tiled(lib, a, b, fmt, kc, "split3", False, False)
         for got, want in zip(planes, TG.decode_planes_plain(_t(a), _t(b),
                                                             fmt)):
             assert (got is None) == (want is None)
@@ -506,8 +453,8 @@ def test_tiled_kernel_source_bit_identical_to_simple_on_host(host_gemm_lib,
                                       want.numpy().view(np.int32))
         for mode in TG.MODES:
             for emit, negate in ((False, False), (True, False), (True, True)):
-                got, _ = _host_tiled(lib, a, b, fmt, kc, mode, emit, negate)
-                want = _host_simple(lib, a, b, fmt, kc, mode, emit, negate)
+                got, _ = hk.host_tiled(lib, a, b, fmt, kc, mode, emit, negate)
+                want = hk.host_simple(lib, a, b, fmt, kc, mode, emit, negate)
                 assert np.array_equal(got.view(np.int32),
                                       want.view(np.int32)), \
                     (a.shape, b.shape, kc, mode, emit, negate)
