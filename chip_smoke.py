@@ -21,19 +21,26 @@ tables' sigma grid; the block reflector's V^T C and T^T W on the fused
 kernel, C -= V W on the f32 one), the batched §5.1 ensemble
 (``backward_error_ensemble``: one batched kernel launch per trailing
 update for the whole sigma x seed grid), holds QR words on the card to
-the CPU's and the batched launch to per-matrix launches, and times the
-kernels: the tiled kernel and the simple one interleaved, the pre-pass,
-the f32 and f64 ``torch.matmul`` yardsticks, the whole ``rgemm``
-trailing-update call and its ``quire_exact`` form, and the batched
-launch against per-matrix ones.
+the CPU's and the batched launch to per-matrix launches, drives the
+observability layer (``[obs]``: records on the card equal to the CPU's,
+a collector changing no word and no launch, a Chrome trace read back;
+``[golden]``: ``golden_zone_study`` on Fig. 7's sigma grid) and the exact
+ABFT (``[ft]``: the protected LU, Cholesky and QR on the kernel,
+fault-free and with a seeded fault; ``[ft soak]``: five seeded faults at
+every site; ``[guarded]``: the mp -> ir -> plain ladder, card vs CPU),
+and times the kernels: the tiled kernel and the simple one interleaved,
+the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks, the whole
+``rgemm`` trailing-update call and its ``quire_exact`` form, and the
+batched launch against per-matrix ones.
 Every phase raises on a failed check, so the script exits non-zero unless
 all of them pass.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it carries
 the card's name and power limit as ``nvidia-smi`` reports them, and the
 line before that the per-kernel JSON (``launches``: on the §5.1 main
-path; ``launches_by_path``: on it and on the refinement, QR and ensemble
-paths, each counted from zero around its own run; ``on_main_path``:
-launched on one of them; error, times and bound).
+path; ``launches_by_path``: on it and on the refinement, QR, ensemble,
+golden-zone and protected (``ft``) paths, each counted from zero around
+its own run; ``on_main_path``: launched on one of them; error, times and
+bound).
 
 It imports nothing of JAX or of the JAX package ``repro``, and needs one
 CUDA device; without one it exits with code 2 and prints no result.
@@ -114,6 +121,24 @@ IDENTITY_SHAPES = ((65, 17, 130), (33, 65, 9), (257, 300, 129),
                    (4032, 64, 4032))
 TIMED_SHAPE = (4032, 64, 4032)      # the n=4096 LU's first trailing update
 MIXED_SHAPE = (960, 64, 960)        # the n=1024 LU studies' first update
+# The observability and fault-tolerance paths.  [obs]: the §5.1 LU and
+# Cholesky with faithful under a collector, GPU vs CPU, and the split3 LU
+# observed vs unobserved.  [golden]: golden_zone_study on Fig. 7's sigma
+# grid; n=512, not the main cell's 4096, because each cell is a refinement
+# LU whose quire sweeps are host-bound (the n=1024 refinement LU took 45 s).
+# [ft]: the protected drivers at the sizes their checksums were sized for;
+# [ft soak]: benchmarks/bench_ft.py's soak (five seeds a site, n=96,
+# nb=32); [guarded]: the ladder's three cases of tests/test_ft.py:249-293,
+# then the benign one at n=512 on the kernel.
+OBS_PARITY_N = 128
+OBS_LU = dict(n=1024, nb=64)
+GOLDEN = dict(n=512, sigmas=(1e-2, 1.0, 1e2, 1e4, 1e6), algo="lu", nb=64,
+              iters=3)
+FT_CELLS = (("rgetrf", dict(n=1024, nb=64)), ("rpotrf", dict(n=512, nb=64)),
+            ("rgeqrf", dict(m=192, n=128, nb=32)))
+SOAK = dict(n=96, nb=32, seeds=5)
+GUARDED_SMALL = dict(n=64, nb=16)
+GUARDED_BIG = dict(n=512, nb=64)
 # The tiled kernel's instantiations the studies run (split3; the last
 # template flag is BATCHED): p32e2 with one K chunk, f32 out and fused
 # encode; p32e2 fused over several chunks (QR's V^T C, K = m - j > 128);
@@ -144,7 +169,9 @@ REPLACES = {"posit_gemm_f32": "src/repro/kernels/posit_gemm.py:271",
 ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
            "refine": ("posit_gemm_f32", "decode_planes"),
            "qr": ("posit_gemm_f32", "posit_gemm", "decode_planes"),
-           "ensemble": ("posit_gemm_f32", "decode_planes")}
+           "ensemble": ("posit_gemm_f32", "decode_planes"),
+           "golden": ("posit_gemm_f32", "decode_planes"),
+           "ft": ("posit_gemm_f32", "posit_gemm", "decode_planes")}
 
 
 def say(*parts):
@@ -443,15 +470,16 @@ class StageTimer:
     drivers call (panels, trsm, GEMM, solves, the quire residual),
     synchronising around each call so the time lands on the stage that
     queued the work.  A solve called with ``quire=True`` is a "quire
-    solve".  Around every ``rgemm`` of a factorization it also counts the
-    GEMM kernel's launches, by posit format."""
+    solve".  Around every ``rgemm`` of a factorization (the un-hooked
+    ``_rgemm`` the bodies call) it also counts the GEMM kernel's
+    launches, by posit format."""
 
     STAGES = {"panel": [("decomp", "getf2"), ("decomp", "potf2"),
                         ("qr", "geqr2")],
               "larft": [("qr", "larft")],
               "trsm": [("decomp", "rtrsm_left_lower"),
                        ("decomp", "rtrsm_right_lowerT")],
-              "gemm": [("decomp", "rgemm"), ("qr", "rgemm")],
+              "gemm": [("decomp", "_rgemm"), ("qr", "_rgemm")],
               "back-substitution": [("qr", "rtrsm_left_upper")],
               "solve": [("solve", "rgetrs"), ("solve", "rpotrs")],
               "quire residual": [("refine", "residual_quire")]}
@@ -1229,6 +1257,378 @@ def phase_batched_gemm(dev, smi):
                 identity_comparisons=compared)
 
 
+def _as_tuple(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def counted_run(fn):
+    """(output, wall seconds, GEMM kernel launches) of ``fn()``, the
+    launches counted from zero around it."""
+    import torch
+    from repro_torch.kernels import posit_gemm as pg
+    pg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, pg.launch_counts()
+
+
+def phase_obs(dev, smi):
+    """positscope on the card.  The §5.1 LU and Cholesky (faithful) under
+    a collector: the record equals the CPU's (span times aside) and the
+    words equal the unobserved run's.  The split3 LU under a collector
+    (runs in turns: unobserved, observed, observed, unobserved): the
+    words and the kernel launches of the unobserved run, and its Chrome
+    trace written to a file and read back."""
+    import os
+    import tempfile
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import posit
+    from repro_torch.lapack import decomp
+    from repro_torch.lapack.error_eval import make_general, make_spd
+    import torch_inputs as ti
+    n = OBS_PARITY_N
+    report = {}
+    for algo, make, factor, key in (
+            ("lu", make_general, decomp.rgetrf, "rgetrf"),
+            ("cholesky", make_spd, decomp.rpotrf, "rpotrf")):
+        a = posit.from_float64(torch.from_numpy(make(n, 1.0, 0)))
+        runs = {}
+        for where, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+            with obs.scoped() as m:
+                out = factor(a.to(d), nb=32, gemm_backend="faithful")
+            runs[where] = (m.to_dict(), _as_tuple(out))
+        plain = _as_tuple(factor(a.to(dev), nb=32, gemm_backend="faithful"))
+        (rec, got), (want, cpu) = runs["gpu"], runs["cpu"]
+        mismatch = ti.record_mismatch(rec, want)
+        check(mismatch is None, f"[obs] {algo} n={n}: record GPU != CPU: "
+              f"{mismatch}")
+        check(all(same_bits(g, c) for g, c in zip(got, cpu)),
+              f"[obs] {algo} n={n}: observed words GPU != CPU")
+        check(all(same_bits(g, p) for g, p in zip(got, plain)),
+              f"[obs] {algo} n={n}: observed words != unobserved words")
+        steps = rec["series"][f"{key}.step"]
+        say(f"[obs] {algo} n={n} nb=32 faithful under a collector: record "
+            f"== the CPU's ({len(steps)} {key}.step rows, {rec['spans']} "
+            f"span, counters {rec['counters']}, last panel golden zone "
+            f"{rec['gauges'][f'{key}.last_panel.golden_zone']!r}); words "
+            "== the unobserved run's")
+        report[algo] = dict(n=n, step_rows=len(steps), spans=rec["spans"])
+    cfg = OBS_LU
+    a = posit.from_float64(torch.from_numpy(make_general(
+        cfg["n"], 1.0, 0)).to(dev))
+
+    def lu():
+        return decomp.rgetrf(a, nb=cfg["nb"], gemm_backend="pallas_split3")
+    runs = {False: [], True: []}
+    for observed in (False, True, True, False):
+        if observed:
+            with obs.scoped() as m:
+                runs[True].append(counted_run(lu))
+        else:
+            runs[False].append(counted_run(lu))
+    (lu0, piv0), _, counts0 = runs[False][0]
+    for (lu1, piv1), _, counts1 in runs[False][1:] + runs[True]:
+        check(same_bits(lu0, lu1) and same_bits(piv0, piv1),
+              f"[obs] split3 LU n={cfg['n']}: observed words != unobserved")
+        check(counts0 == counts1 and counts0["posit_gemm_f32"] > 0,
+              f"[obs] split3 LU n={cfg['n']}: launches {counts1}, "
+              f"unobserved {counts0}")
+    walls = {k: [w for _, w, _ in v] for k, v in runs.items()}
+    wall0, wall1 = (sum(walls[k]) / 2 for k in (False, True))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rgetrf_trace.json")
+        m.save_chrome_trace(path)
+        doc = json.loads(Path(path).read_text())
+    events = doc["traceEvents"]
+    check(len(events) == m.to_dict()["spans"] == 1
+          and events[0]["name"] == "rgetrf" and events[0]["ph"] == "X"
+          and 0 < events[0]["dur"] <= walls[True][1] * 1e6,
+          f"[obs] Chrome trace read back: {events}")
+    rows = m.to_dict()["series"]["rgetrf.step"]
+    say(f"[obs] split3 LU n={cfg['n']} nb={cfg['nb']}: observed wall "
+        f"{wall1:.2f} s, unobserved {wall0:.2f} s "
+        f"({100 * (wall1 / wall0 - 1):+.1f} %; in turns "
+        f"{walls[False][0]:.2f}, {walls[True][0]:.2f}, {walls[True][1]:.2f},"
+        f" {walls[False][1]:.2f} s); words and kernel launches "
+        f"equal ({counts0['posit_gemm_f32']} GEMM, "
+        f"{counts0['decode_planes']} pre-pass); {len(rows)} step rows; "
+        f"Chrome trace written and read back ({len(events)} event, "
+        f"{events[0]['dur'] / 1e6:.2f} s) [{smi}]")
+    report["lu_split3"] = dict(n=cfg["n"], nb=cfg["nb"], wall_s=wall1,
+                               unobserved_wall_s=wall0, walls_s=walls,
+                               gemm_launches=counts0["posit_gemm_f32"])
+    return report
+
+
+def phase_golden(dev, smi):
+    """golden_zone_study on the kernel: each cell's occupancy equals the
+    one computed on the CPU from the same words, ``ir.sweep`` has ``iters``
+    rows a cell, refinement gains >= 2 digits at sigma=1 (the reference's
+    bar); one GEMM and one pre-pass launch per trailing update, counted
+    from zero around the study."""
+    import math
+    import torch
+    from repro_torch import obs
+    from repro_torch.core import posit
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.lapack.error_eval import (golden_zone_study,
+                                               golden_zone_table,
+                                               make_general)
+    cfg = GOLDEN
+    pg.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with StageTimer() as st:
+        res = golden_zone_study(cfg["n"], cfg["sigmas"], cfg["algo"],
+                                nb=cfg["nb"], iters=cfg["iters"],
+                                gemm_backend="pallas_split3", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = pg.launch_counts()
+    stages = {k: v for k, v in st.secs.items() if v}
+    stages["other"] = wall - sum(stages.values())
+    expect = len(cfg["sigmas"]) * (math.ceil(cfg["n"] / cfg["nb"]) - 1)
+    check(counts["posit_gemm_f32"] == counts["decode_planes"] == expect
+          and counts["posit_gemm"] == counts["posit_gemm_f32_simple"]
+          == counts["posit_gemm_simple"] == 0,
+          f"[golden] launches {counts}, expected {expect} GEMM and pre-pass "
+          "launches (one per trailing update)")
+    for r in res:
+        a_cpu = posit.from_float64(torch.from_numpy(make_general(
+            cfg["n"], r.sigma, 0)))
+        occ = obs.golden_zone_fraction(a_cpu)
+        check(r.occupancy == occ, f"[golden] sigma={r.sigma:g}: occupancy "
+              f"{r.occupancy!r} != the CPU's {occ!r}")
+        check(len(r.sweeps) == cfg["iters"], f"[golden] sigma={r.sigma:g}: "
+              f"{len(r.sweeps)} ir.sweep rows, expected {cfg['iters']}")
+        check(all(math.isfinite(x) and x > 0 for x in
+                  (r.e_plain, r.e_ir, r.e_binary32)), f"[golden] {r}")
+        say(f"[golden] sigma={r.sigma:g}: occupancy {r.occupancy!r} (== "
+            f"CPU), e_plain {r.e_plain!r} e_ir {r.e_ir!r} e_binary32 "
+            f"{r.e_binary32!r}; digits {r.digits:.4f}, IR gained "
+            f"{r.digits_gained:.4f}; sweeps digits_gained "
+            + ", ".join(f"{row['digits_gained']:.3f}" for row in r.sweeps))
+    one = next(r for r in res if r.sigma == 1.0)
+    check(one.digits_gained >= 2.0, f"[golden] sigma=1: refinement gained "
+          f"{one.digits_gained:.3f} digits, below the reference's bar of 2")
+    for line in golden_zone_table(res).splitlines():
+        if line:
+            say(f"[golden] {line}")
+    say(f"[golden] golden_zone_study n={cfg['n']} nb={cfg['nb']} iters="
+        f"{cfg['iters']} pallas_split3, {len(res)} cells: GEMM launches "
+        f"{counts['posit_gemm_f32']}; wall {wall:.2f} s "
+        + " ".join(f"{k} {v:.2f} s" for k, v in stages.items())
+        + f" [{smi}]")
+    return dict(n=cfg["n"], nb=cfg["nb"], iters=cfg["iters"], wall_s=wall,
+                stages_s=stages, cells=[dict(
+                    sigma=r.sigma, occupancy=r.occupancy, e_plain=r.e_plain,
+                    e_ir=r.e_ir, e_binary32=r.e_binary32, digits=r.digits,
+                    digits_gained=r.digits_gained) for r in res]), counts
+
+
+def _ft_drivers(name, cfg, dev):
+    """(input words, unprotected run, protected run taking a plan, site,
+    block steps) of a protected driver's [ft] cell."""
+    import torch
+    from repro_torch.core import posit
+    from repro_torch.lapack import decomp, qr
+    from repro_torch.lapack.error_eval import (make_general, make_rect,
+                                               make_spd)
+    be = "pallas_split3"
+    nb = cfg["nb"]
+    if name == "rgeqrf":
+        a64 = make_rect(cfg["m"], cfg["n"], 1.0, 0)
+        plain = lambda a: qr.rgeqrf(a, nb, be)
+        prot = lambda a, plan: qr.rgeqrf_ft(a, nb, be, plan=plan)
+    elif name == "rpotrf":
+        a64 = make_spd(cfg["n"], 1.0, 0)
+        plain = lambda a: decomp.rpotrf(a, nb, be)
+        prot = lambda a, plan: decomp.rpotrf_ft(a, nb, be, plan=plan)
+    else:
+        a64 = make_general(cfg["n"], 1.0, 0)
+        plain = lambda a: decomp.rgetrf(a, nb, be)
+        prot = lambda a, plan: decomp.rgetrf_ft(a, nb, be, plan=plan)
+    a = posit.from_float64(torch.from_numpy(a64).to(dev))
+    steps = -(-min(a.shape) // nb)
+    return a, plain, prot, f"{name}.step", steps
+
+
+def phase_ft(dev, smi):
+    """The checksum-protected factorizations on the kernel: fault-free,
+    the unprotected driver's words (and pivots, tau) with no detection and
+    the same GEMM launches; with one seeded fault at the driver's site,
+    detected and recovered to the same words.  Prints the protected /
+    unprotected wall ratio (runs in turns: unprotected, protected,
+    protected, unprotected), the launches and the peak device memory of
+    one checksum of the factored matrix.  The ``ft`` path's launches are the
+    protected runs' (counted from zero around each, summed)."""
+    import torch
+    from repro_torch import ft
+    report, path_counts = {}, {}
+    for name, cfg in FT_CELLS:
+        a, plain, prot, site, steps = _ft_drivers(name, cfg, dev)
+        want, wall0, c0 = counted_run(lambda: _as_tuple(plain(a)))
+        out, wall1, c1 = counted_run(lambda: prot(a, None))
+        again, wall1b, _ = counted_run(lambda: prot(a, None))
+        _, wall0b, _ = counted_run(lambda: plain(a))
+        turns = (wall0, wall1, wall1b, wall0b)
+        wall0, wall1 = (wall0 + wall0b) / 2, (wall1 + wall1b) / 2
+        for words, rep in ((out[:-1], out[-1]), (again[:-1], again[-1])):
+            check(all(same_bits(g, w) for g, w in zip(words, want))
+                  and rep.detections == rep.retries == 0,
+                  f"[ft] {name} fault-free: words differ or {rep}")
+        check(c1 == c0, f"[ft] {name} fault-free: launches {c1} != the "
+              f"unprotected {c0}")
+        plan = ft.make_plan(0, site, size=a.numel(), steps=steps)
+        out, wall2, c2 = counted_run(lambda: prot(a, plan))
+        words, frep = out[:-1], out[-1]
+        check(frep.detections >= 1 and not frep.failed,
+              f"[ft] {name}: fault {plan.faults} not detected: {frep}")
+        check(all(same_bits(g, w) for g, w in zip(words, want)),
+              f"[ft] {name}: recovered words != the unprotected words")
+        for c in (c1, c2):
+            for k, v in c.items():
+                path_counts[k] = path_counts.get(k, 0) + v
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ft.checksum(want[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        shape = tuple(a.shape)
+        say(f"[ft] {name}_ft {shape} nb={cfg['nb']} pallas_split3: "
+            f"fault-free words == unprotected, 0 detections, launches equal "
+            f"({c1['posit_gemm_f32']} f32 + {c1['posit_gemm']} fused GEMM, "
+            f"{c1['decode_planes']} pre-pass); wall {wall1:.2f} s vs "
+            f"unprotected {wall0:.2f} s ({wall1 / wall0:.3f}x; in turns "
+            + ", ".join(f"{t:.2f}" for t in turns) + " s); one fault "
+            f"{plan.faults[0]}: {frep.detections} detection, "
+            f"{frep.retries} retry at {frep.sites}, recovered words "
+            f"identical, wall {wall2:.2f} s, launches "
+            f"{c2['posit_gemm_f32'] + c2['posit_gemm']} GEMM; one checksum "
+            f"of {shape}: peak {peak / 2**20:.1f} MiB above the words "
+            f"[{smi}]")
+        report[name] = dict(shape=list(shape), nb=cfg["nb"], wall_s=wall1,
+                            unprotected_wall_s=wall0, turns_s=turns,
+                            faulted_wall_s=wall2,
+                            ratio=wall1 / wall0, detections=frep.detections,
+                            retries=frep.retries, launches=c1,
+                            faulted_launches=c2, checksum_peak_bytes=peak)
+    return report, path_counts
+
+
+def phase_ft_soak(dev, smi):
+    """benchmarks/bench_ft.py's soak on the card: five seeded faults at
+    each site (the GEMMs' outputs and quire limbs, each protected
+    factorization's steps, the decompositions on the kernel), every one
+    detected and recovered to the unprotected words."""
+    import numpy as np
+    from repro_torch import ft
+    from repro_torch.core import posit
+    from repro_torch.kernels.ops import rgemm
+    from repro_torch.lapack import decomp, qr
+    from repro_torch.lapack.error_eval import make_spd
+    import torch
+    import torch_inputs as ti
+    n, nb, seeds = SOAK["n"], SOAK["nb"], SOAK["seeds"]
+    be = "pallas_split3"
+    rng = np.random.default_rng(3)
+    a = ti.posits(rng, (n, n), -4, 4, device=dev)
+    spd = posit.from_float64(torch.from_numpy(make_spd(n, 1.0, 3)).to(dev))
+    tall = ti.posits(rng, (n, 2 * nb), -4, 4, device=dev)
+    word_kinds = ("flip", "nar", "saturate")
+    cases = {
+        "rgemm.out": (lambda p: ft.rgemm_ft(a, a, plan=p)[::2],
+                      (rgemm(a, a, backend="quire_exact"),), n * n, 1, 32,
+                      word_kinds),
+        "rgemm.limbs": (lambda p: ft.quire_gemm_ft(a, a, plan=p)[::2],
+                        (rgemm(a, a, backend="quire_exact"),), n * n, 1, 64,
+                        ("flip",)),
+        "rgetrf.step": (lambda p: decomp.rgetrf_ft(a, nb, be, plan=p),
+                        decomp.rgetrf(a, nb, be), n * nb, n // nb, 32,
+                        word_kinds),
+        "rpotrf.step": (lambda p: decomp.rpotrf_ft(spd, nb, be, plan=p),
+                        (decomp.rpotrf(spd, nb, be),), n * nb, n // nb, 32,
+                        word_kinds),
+        "rgeqrf.step": (lambda p: qr.rgeqrf_ft(tall, nb, be, plan=p),
+                        qr.rgeqrf(tall, nb, be), n * nb, 2, 32, word_kinds),
+    }
+    report = {}
+    t0 = time.perf_counter()
+    for site, (run, want, size, steps, nbits, kinds) in cases.items():
+        detected = recovered = 0
+        for seed in range(seeds):
+            plan = ft.make_plan(seed, site, size=size, steps=steps,
+                                kinds=kinds, nbits=nbits)
+            out = run(plan)
+            words, rep = out[:-1], out[-1]
+            detected += rep.detections >= 1
+            recovered += all(same_bits(g, w) for g, w in zip(words, want))
+        check(detected == recovered == seeds, f"[ft soak] {site}: "
+              f"{detected} of {seeds} detected, {recovered} recovered")
+        report[site] = dict(injected=seeds, detected=detected,
+                            recovered=recovered)
+        say(f"[ft soak] {site:12s} n={n} nb={nb}: injected {seeds}, "
+            f"detected {detected}, recovered bit-identically {recovered}")
+    wall = time.perf_counter() - t0
+    say(f"[ft soak] {len(cases) * seeds} faults, 100 % detected and "
+        f"recovered; wall {wall:.2f} s [{smi}]")
+    report["wall_s"] = wall
+    return report
+
+
+def phase_guarded(dev, smi):
+    """The guarded ladder (rgesv_guarded on rgetrf_ft): its three cases
+    with faithful at n=64, the card's pair words and SolveReport equal to
+    the CPU's; then the benign case at n=512 on the kernel, converged
+    with the reference test's residual bound."""
+    import numpy as np
+    import torch
+    from repro_torch import ft
+    from repro_torch.core import posit
+    from repro_torch.lapack import refine
+    import torch_inputs as ti
+    report = {}
+    n, nb = GUARDED_SMALL["n"], GUARDED_SMALL["nb"]
+    for case, c in ti.GUARDED_CASES.items():
+        a, b = ti.guarded_problem(case, n)
+        plan = (ft.FaultPlan(tuple(ft.Fault(**f) for f in c["faults"]))
+                if c["faults"] else None)
+        runs = {}
+        for where, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+            t0 = time.perf_counter()
+            (hi, lo), rep = refine.rgesv_guarded(
+                a.to(d), b.to(d), nb=nb, gemm_backend="faithful", plan=plan)
+            runs[where] = (hi, lo, rep, time.perf_counter() - t0)
+        (hg, lg, rg, tg), (hc, lc, rc, tc) = runs["gpu"], runs["cpu"]
+        check(same_bits(hg, hc) and same_bits(lg, lc),
+              f"[guarded] {case}: pair words GPU != CPU")
+        check(vars(rg) == vars(rc), f"[guarded] {case}: SolveReport GPU "
+              f"{rg} != CPU {rc}")
+        say(f"[guarded] {case} n={n} nb={nb} faithful: pair words and "
+            f"SolveReport GPU == CPU: {rg} (GPU {tg:.2f} s, CPU {tc:.2f} s)")
+        report[case] = dict(vars(rg), gpu_s=tg, cpu_s=tc)
+    n, nb = GUARDED_BIG["n"], GUARDED_BIG["nb"]
+    a, b = ti.guarded_problem("benign", n, dev)
+    ((hi, lo), rep), wall, counts = counted_run(lambda: refine.rgesv_guarded(
+        a, b, nb=nb, gemm_backend="pallas_split3"))
+    x = refine.pair_to_float64(hi, lo).cpu().numpy()
+    bv = posit.to_float64(b).cpu().numpy()
+    r = bv - posit.to_float64(a).cpu().numpy() @ x
+    rel = float(np.abs(r).max() / np.abs(bv).max())
+    check(rep.outcome == "converged" and rel < 1e-8,
+          f"[guarded] benign n={n}: {rep}, residual {rel:.3g}")
+    say(f"[guarded] benign n={n} nb={nb} pallas_split3: {rep}; max|b - A x|"
+        f" / max|b| {rel:.3g} (< 1e-8); GEMM launches "
+        f"{counts['posit_gemm_f32']}; wall {wall:.2f} s [{smi}]")
+    report["benign_big"] = dict(vars(rep), n=n, nb=nb, wall_s=wall,
+                                residual=rel)
+    return report
+
+
 def interleaved_ms(first, second, reps: int = 20):
     """Device times of two functions in turns (first, second, second,
     first; ``graph_ms`` each): (first's mean, second's mean, all four)."""
@@ -1492,10 +1892,15 @@ def main(argv=None) -> int:
     ens_report, ens_counts = phase_ensemble(dev, smi)
     phase_qr_parity(dev)
     batched = phase_batched_gemm(dev, smi)
+    obs_report = phase_obs(dev, smi)
+    golden, golden_counts = phase_golden(dev, smi)
+    ft_report, ft_counts = phase_ft(dev, smi)
+    soak = phase_ft_soak(dev, smi)
+    guarded = phase_guarded(dev, smi)
     rows, grid, extra = phase_timings(dev, worst, smi)
 
     by_path = dict(main=counts, refine=refine_counts, qr=qr_counts,
-                   ensemble=ens_counts)
+                   ensemble=ens_counts, golden=golden_counts, ft=ft_counts)
     for path, names in ON_PATH.items():
         for name in names:
             check(by_path[path][name] > 0,
@@ -1524,7 +1929,8 @@ def main(argv=None) -> int:
                  identity_comparisons=compared, studies=report,
                  quire=quire, refine=refine_report, mp_cells=mp_cells,
                  qr=qr_report, lstsq=lstsq, ensemble=ens_report,
-                 batched=batched,
+                 batched=batched, obs=obs_report, golden=golden,
+                 ft=ft_report, ft_soak=soak, guarded=guarded,
                  kernels=kernels, timings=list(rows.values()),
                  gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))

@@ -14,13 +14,17 @@ backends, fused-chain ops, ``pconvert``, ``rounding_eps``), ``quire``
 ``_loop`` word-domain and ``_batched`` drivers; the GEMM kernel takes a
 batch axis), ``lapack.qr`` (Householder QR, ``rormqr``/``rorgqr``,
 ``rgels``/``rgels_ir``/``rgels_mp``/``rgels_batched``, ``sgels``),
-``lapack.refine`` (``rgesv_ir``/``rposv_ir``/``rgesv_mp``/``rposv_mp``),
+``lapack.refine`` (``rgesv_ir``/``rposv_ir``/``rgesv_mp``/``rposv_mp``,
+the monitored refinement and the guarded ``rgesv_guarded`` ladder),
 ``lapack.error_eval`` (the §5.1 study and its batched ensemble, the
-refinement, mixed-precision and least-squares studies) and ``interop``.
-Not yet ported: observability (with ``golden_zone_study`` and the
-observed driver variants), fault tolerance (the ``_ft`` drivers and the
-monitored/guarded refinement), the distributed stack, models, serving and
-training (ROADMAP.md, queue A).
+refinement, mixed-precision, least-squares and golden-zone studies),
+``obs`` (positscope: counters, histograms, series, Chrome-trace spans and
+posit-word telemetry, hooked into ``rgemm``, the factorizations and the
+refinement where the reference records), ``ft`` (exact-ABFT checksums,
+seeded fault injection, the protected GEMMs and the ``_ft``
+factorizations) and ``interop``.  Not yet ported: the distributed stack
+with ``checkpoint`` (its only caller), models, serving and training
+(ROADMAP.md, queue A).
 
 Functions that take tensors run where the tensors live; entry points that
 build tensors take ``device="cuda"`` by default and raise when no GPU is

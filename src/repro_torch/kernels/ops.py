@@ -28,7 +28,14 @@ Backends, under the reference's names:
 
 Beta semantics: beta == 0 means C is NOT referenced on every backend
 except ``faithful``, whose literal per-op chain computes 0 * C first.
-The reference's observability hooks wait for ROADMAP A8.
+
+Observability (``repro_torch.obs``): with a collector open, ``rgemm`` wraps
+the call in an ``rgemm`` span, counts ``rgemm.calls`` and ``rgemm.macs``
+and records the word telemetry of ``a`` and of the output, as the
+reference's ``rgemm`` does for concrete operands.  The reference's own
+bodies (the factorizations, QR, the protected GEMM) call it traced, where
+it records nothing; the port's bodies call ``_rgemm``, the same GEMM
+without the hook.  With no collector open ``rgemm`` is ``_rgemm``.
 
 Batches: A (B, M, K) and B (B, K, N) (``trans_*`` transposes the last two
 axes, as a view) give (B, M, N), each matrix the 2-D call's words, where
@@ -46,6 +53,9 @@ from repro_torch.core import posit
 from repro_torch.core.formats import P32E2, PositFormat
 from repro_torch.kernels import ref
 from repro_torch.kernels.posit_gemm import posit_gemm, posit_gemm_f32
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import numerics as _obs_numerics
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.quire import quire_gemm
 
 BACKENDS = ("pallas_split3", "pallas_split3_comp", "xla_quire", "faithful",
@@ -66,7 +76,31 @@ def rgemm(a_p: torch.Tensor, b_p: torch.Tensor,
           backend: str = "xla_quire", block: int = 128,
           fmt: PositFormat = P32E2) -> torch.Tensor:
     """Posit GEMM returning int32 posit words in format ``fmt``, on the
-    device of ``a_p``."""
+    device of ``a_p``; observed when a collector is open (module
+    docstring)."""
+    kw = dict(trans_a=trans_a, trans_b=trans_b, backend=backend,
+              block=block, fmt=fmt)
+    if not _obs_metrics.enabled():
+        return _rgemm(a_p, b_p, c_p, alpha, beta, **kw)
+    m = a_p.shape[-1] if trans_a else a_p.shape[-2]
+    k = a_p.shape[-2] if trans_a else a_p.shape[-1]
+    n = b_p.shape[-2] if trans_b else b_p.shape[-1]
+    with _obs_trace.span("rgemm", m=int(m), k=int(k), n=int(n),
+                         backend=backend, fmt=fmt.name):
+        out = _rgemm(a_p, b_p, c_p, alpha, beta, **kw)
+        _obs_metrics.inc("rgemm.calls")
+        _obs_metrics.inc("rgemm.macs", float(m) * float(k) * float(n))
+        _obs_numerics.record_numerics("rgemm.a", a_p, fmt)
+        _obs_numerics.record_numerics("rgemm.out", out, fmt)
+    return out
+
+
+def _rgemm(a_p: torch.Tensor, b_p: torch.Tensor,
+           c_p: torch.Tensor | None = None, alpha=1.0, beta=0.0, *,
+           trans_a: bool = False, trans_b: bool = False,
+           backend: str = "xla_quire", block: int = 128,
+           fmt: PositFormat = P32E2) -> torch.Tensor:
+    """``rgemm`` without the observability hook."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     a_p = a_p.to(torch.int32)
@@ -83,8 +117,9 @@ def rgemm(a_p: torch.Tensor, b_p: torch.Tensor,
                           dtype=torch.int32, device=dev)
 
     if backend == "quire_exact" and a_p.dim() == 3:
-        return torch.stack([rgemm(a, b, c, alpha, beta, backend=backend,
-                                  fmt=fmt) for a, b, c in zip(a_p, b_p, c_p)])
+        return torch.stack([_rgemm(a, b, c, alpha, beta, backend=backend,
+                                   fmt=fmt)
+                            for a, b, c in zip(a_p, b_p, c_p)])
     if backend == "quire_exact":
         # Fold alpha/beta so the common BLAS-3 updates stay single-rounding:
         # |alpha| == 1 -> exact product negation; beta == 1 -> exact quire

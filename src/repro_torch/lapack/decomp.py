@@ -24,8 +24,24 @@ reference's measured baseline, bit-identical); and
 carried through the panels, the sweeps and the GEMM, where the reference
 ``vmap``s the program: B matrices cost one matrix's launches, and each
 trailing update is one batched kernel launch.  Pivots are chosen per
-matrix.  The ``_ft`` drivers wait for fault tolerance (ROADMAP A9), the
-observed variants for observability (A8).
+matrix.
+
+Observability: with an ``obs.scoped()`` collector open, ``rpotrf`` and
+``rgetrf`` of one matrix run in an ``rpotrf``/``rgetrf`` span and record
+each block step's golden-zone/regime telemetry (the ``*.step`` series,
+the ``*.last_panel.golden_zone`` gauge, the ``*.calls`` counter), the
+reference's collect variant; the words are the same.  Their trailing
+updates call the un-hooked ``_rgemm``, as the reference's traced bodies
+record no ``rgemm``; the ``_loop`` drivers, which the reference runs
+eagerly, call the hooked ``rgemm``; a batch records nothing (the
+reference ``vmap``s it).
+
+Fault tolerance: ``rpotrf_ft``/``rgetrf_ft`` are host-stepped: each
+block step is the unprotected driver's step, then the checksums of the
+whole matrix (``repro_torch.ft.abft``), the injection window of a
+``FaultPlan``, and verification; a mismatch retries the step from its
+verified predecessor.  Fault-free and after recovery their words are
+``rpotrf``/``rgetrf``'s.
 """
 from __future__ import annotations
 
@@ -33,9 +49,13 @@ import torch
 
 from repro_torch.core import posit
 from repro_torch.core.formats import P32E2, PositFormat
-from repro_torch.kernels.ops import rgemm
+from repro_torch.ft import abft
+from repro_torch.kernels.ops import _rgemm, rgemm
 from repro_torch.lapack.blas import (chain_sum, rtrsm_left_lower,
                                      rtrsm_right_lowerT)
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import numerics as _obs_numerics
+from repro_torch.obs import trace as _obs_trace
 
 
 # --------------------------------------------------------------------------
@@ -171,20 +191,41 @@ def _getf2_words(a_p: torch.Tensor, nb: int, fmt: PositFormat = P32E2):
 # blocked drivers — one body, three dispatch shapes
 # --------------------------------------------------------------------------
 
-def _rpotrf_body(a_p, nb, gemm_backend, panel, fmt):
+def _potrf_step(a, j, nb, gemm_backend, panel, fmt, gemm):
+    """Block step ``j`` of the right-looking Cholesky on ``a`` in place:
+    factor the diagonal block, solve the panel below it, update the
+    trailing matrix with one ``gemm``.  Returns (diagonal block, update
+    words or None)."""
+    n = a.shape[-1]
+    w = min(nb, n - j)
+    l11 = panel(a[..., j:j + w, j:j + w], fmt=fmt)
+    a[..., j:j + w, j:j + w] = l11
+    upd = None
+    if j + w < n:
+        a21 = rtrsm_right_lowerT(a[..., j + w:, j:j + w], l11, fmt=fmt)
+        a[..., j + w:, j:j + w] = a21
+        upd = gemm(a21, a21, a[..., j + w:, j + w:], alpha=-1.0, beta=1.0,
+                   trans_b=True, backend=gemm_backend, fmt=fmt)
+        a[..., j + w:, j + w:] = upd
+    return l11, upd
+
+
+def _rpotrf_body(a_p, nb, gemm_backend, panel, fmt, gemm=None,
+                 collect=False):
+    """The blocked Cholesky; ``collect=True`` also returns the per-step
+    telemetry list of the observed variant (``step_stats`` of each
+    diagonal block and trailing update).  ``gemm`` defaults to the
+    un-hooked ``_rgemm``, looked up at call time."""
+    gemm = gemm or _rgemm
     n = a_p.shape[-1]
     a = a_p.to(torch.int32).clone()
+    tel = []
     for j in range(0, n, nb):
-        w = min(nb, n - j)
-        l11 = panel(a[..., j:j + w, j:j + w], fmt=fmt)
-        a[..., j:j + w, j:j + w] = l11
-        if j + w < n:
-            a21 = rtrsm_right_lowerT(a[..., j + w:, j:j + w], l11, fmt=fmt)
-            a[..., j + w:, j:j + w] = a21
-            a[..., j + w:, j + w:] = rgemm(
-                a21, a21, a[..., j + w:, j + w:], alpha=-1.0, beta=1.0,
-                trans_b=True, backend=gemm_backend, fmt=fmt)
-    return torch.tril(a)
+        l11, upd = _potrf_step(a, j, nb, gemm_backend, panel, fmt, gemm)
+        if collect:
+            tel.append(_obs_numerics.factor_step_stats(l11, upd, fmt))
+    out = torch.tril(a)
+    return (out, tel) if collect else out
 
 
 def swap_perm(piv: torch.Tensor, rows: int) -> torch.Tensor:
@@ -208,58 +249,107 @@ def permute_rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return torch.take_along_dim(x, perm, dim=dim)
 
 
-def _rgetrf_body(a_p, nb, gemm_backend, panel_fn, fmt):
+def _getrf_step(a, ipiv, j, nb, gemm_backend, panel_fn, fmt, gemm):
+    """Block step ``j`` of the right-looking partial-pivot LU on ``a`` and
+    ``ipiv`` in place: factor the panel, apply its row swaps to the rest,
+    solve U12, update the trailing matrix with one ``gemm``.  Returns
+    (panel words, update words or None)."""
+    m, n = a.shape[-2:]
+    w = min(nb, min(m, n) - j)
+    panel, piv_loc = panel_fn(a[..., j:, j:j + w], w, fmt=fmt)
+    # apply the panel's row swaps to the rest of the matrix
+    perm = swap_perm(piv_loc, m - j)
+    if j > 0:
+        a[..., j:, :j] = permute_rows(a[..., j:, :j], perm)
+    right = permute_rows(a[..., j:, j + w:], perm)
+    a[..., j:, j:j + w] = panel
+    ipiv[..., j:j + w] = piv_loc + j
+    upd = None
+    if j + w < n:
+        u12 = rtrsm_left_lower(panel[..., :w, :], right[..., :w, :],
+                               unit_diag=True, fmt=fmt)
+        a[..., j:j + w, j + w:] = u12
+        if j + w < m:
+            upd = gemm(panel[..., w:, :], u12, right[..., w:, :], alpha=-1.0,
+                       beta=1.0, backend=gemm_backend, fmt=fmt)
+            a[..., j + w:, j + w:] = upd
+    return panel, upd
+
+
+def _rgetrf_body(a_p, nb, gemm_backend, panel_fn, fmt, gemm=None,
+                 collect=False):
+    """The blocked LU; ``collect`` and ``gemm`` as in ``_rpotrf_body``."""
+    gemm = gemm or _rgemm
     m, n = a_p.shape[-2:]
     a = a_p.to(torch.int32).clone()
     ipiv = torch.zeros((*a.shape[:-2], min(m, n)), dtype=torch.int32,
                        device=a.device)
+    tel = []
     for j in range(0, min(m, n), nb):
-        w = min(nb, min(m, n) - j)
-        panel, piv_loc = panel_fn(a[..., j:, j:j + w], w, fmt=fmt)
-        # apply the panel's row swaps to the rest of the matrix
-        perm = swap_perm(piv_loc, m - j)
-        if j > 0:
-            a[..., j:, :j] = permute_rows(a[..., j:, :j], perm)
-        right = permute_rows(a[..., j:, j + w:], perm)
-        a[..., j:, j:j + w] = panel
-        ipiv[..., j:j + w] = piv_loc + j
-        if j + w < n:
-            u12 = rtrsm_left_lower(panel[..., :w, :], right[..., :w, :],
-                                   unit_diag=True, fmt=fmt)
-            a[..., j:j + w, j + w:] = u12
-            if j + w < m:
-                a[..., j + w:, j + w:] = rgemm(
-                    panel[..., w:, :], u12, right[..., w:, :], alpha=-1.0,
-                    beta=1.0, backend=gemm_backend, fmt=fmt)
-    return a, ipiv
+        panel, upd = _getrf_step(a, ipiv, j, nb, gemm_backend, panel_fn, fmt,
+                                 gemm)
+        if collect:
+            tel.append(_obs_numerics.factor_step_stats(panel, upd, fmt))
+    return (a, ipiv, tel) if collect else (a, ipiv)
+
+
+def _rpotrf(a_p, nb, gemm_backend, fmt):
+    """``rpotrf`` without the observability hook."""
+    return _rpotrf_body(a_p, nb, gemm_backend, potf2, fmt)
+
+
+def _rgetrf(a_p, nb, gemm_backend, fmt):
+    """``rgetrf`` without the observability hook."""
+    return _rgetrf_body(a_p, nb, gemm_backend, getf2, fmt)
 
 
 def rpotrf(a_p: torch.Tensor, nb: int = 64, gemm_backend: str = "xla_quire",
            fmt: PositFormat = P32E2) -> torch.Tensor:
-    """Blocked lower Cholesky; returns L (strict upper triangle zero)."""
-    return _rpotrf_body(a_p, nb, gemm_backend, potf2, fmt)
+    """Blocked lower Cholesky; returns L (strict upper triangle zero).
+    Observed when a collector is open and ``a_p`` is one matrix (module
+    docstring)."""
+    if not (_obs_metrics.enabled() and a_p.dim() == 2):
+        return _rpotrf(a_p, nb, gemm_backend, fmt)
+    with _obs_trace.span("rpotrf", n=int(a_p.shape[0]), nb=nb,
+                         backend=gemm_backend, fmt=fmt.name):
+        out, tel = _rpotrf_body(a_p, nb, gemm_backend, potf2, fmt,
+                                collect=True)
+    _obs_numerics.emit_factor_steps("rpotrf", tel)
+    return out
 
 
 def rgetrf(a_p: torch.Tensor, nb: int = 64, gemm_backend: str = "xla_quire",
            fmt: PositFormat = P32E2):
     """Blocked partial-pivot LU; returns (LU, ipiv) with 0-based int32
-    pivots, as the reference."""
-    return _rgetrf_body(a_p, nb, gemm_backend, getf2, fmt)
+    pivots, as the reference.  Observed as ``rpotrf``."""
+    if not (_obs_metrics.enabled() and a_p.dim() == 2):
+        return _rgetrf(a_p, nb, gemm_backend, fmt)
+    with _obs_trace.span("rgetrf", m=int(a_p.shape[0]),
+                         n=int(a_p.shape[1]), nb=nb, backend=gemm_backend,
+                         fmt=fmt.name):
+        lu, ipiv, tel = _rgetrf_body(a_p, nb, gemm_backend, getf2, fmt,
+                                     collect=True)
+    _obs_numerics.emit_factor_steps("rgetrf", tel)
+    return lu, ipiv
 
 
 def rpotrf_loop(a_p: torch.Tensor, nb: int = 64,
                 gemm_backend: str = "xla_quire",
                 fmt: PositFormat = P32E2) -> torch.Tensor:
     """``rpotrf`` over the word-domain panels (the reference's measured
-    baseline; bit-identical to ``rpotrf``)."""
-    return _rpotrf_body(a_p, nb, gemm_backend, _potf2_words, fmt)
+    baseline; bit-identical to ``rpotrf``).  The reference runs it
+    eagerly, so its GEMMs are the hooked ``rgemm``."""
+    return _rpotrf_body(a_p, nb, gemm_backend, _potf2_words, fmt,
+                        gemm=rgemm)
 
 
 def rgetrf_loop(a_p: torch.Tensor, nb: int = 64,
                 gemm_backend: str = "xla_quire",
                 fmt: PositFormat = P32E2):
-    """``rgetrf`` over the word-domain panels (bit-identical)."""
-    return _rgetrf_body(a_p, nb, gemm_backend, _getf2_words, fmt)
+    """``rgetrf`` over the word-domain panels (bit-identical; GEMMs
+    hooked, as ``rpotrf_loop``'s)."""
+    return _rgetrf_body(a_p, nb, gemm_backend, _getf2_words, fmt,
+                        gemm=rgemm)
 
 
 def check_batched(a_p: torch.Tensor) -> torch.Tensor:
@@ -275,7 +365,7 @@ def rpotrf_batched(a_p: torch.Tensor, nb: int = 64,
                    fmt: PositFormat = P32E2) -> torch.Tensor:
     """``rpotrf`` of each matrix of a (batch, n, n) stack, as one batched
     run (the §5.1 ensemble shape)."""
-    return rpotrf(check_batched(a_p), nb, gemm_backend, fmt)
+    return _rpotrf(check_batched(a_p), nb, gemm_backend, fmt)
 
 
 def rgetrf_batched(a_p: torch.Tensor, nb: int = 64,
@@ -283,7 +373,7 @@ def rgetrf_batched(a_p: torch.Tensor, nb: int = 64,
                    fmt: PositFormat = P32E2):
     """``rgetrf`` of each matrix of a (batch, m, n) stack; returns
     (LU (batch, m, n), ipiv (batch, min(m, n)))."""
-    return rgetrf(check_batched(a_p), nb, gemm_backend, fmt)
+    return _rgetrf(check_batched(a_p), nb, gemm_backend, fmt)
 
 
 # --------------------------------------------------------------------------
@@ -300,3 +390,56 @@ def sgetrf(a32: torch.Tensor):
     ``torch.linalg.lu_factor`` gives 1-based ones."""
     lu, piv = torch.linalg.lu_factor(a32.to(torch.float32))
     return lu, (piv - 1).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# checksum-protected drivers (exact ABFT, repro_torch.ft)
+# --------------------------------------------------------------------------
+
+def rpotrf_ft(a_p: torch.Tensor, nb: int = 64,
+              gemm_backend: str = "xla_quire", fmt: PositFormat = P32E2,
+              plan=None, max_retries: int = 2):
+    """Checksum-protected blocked Cholesky: returns (L, FtReport).
+
+    Each block step is ``rpotrf``'s, followed by the checksums of the
+    whole matrix, the injection window and verification; a corrupted step
+    recomputes from its verified predecessor, so L is ``rpotrf``'s words
+    fault-free and after recovery.  Exhausting ``max_retries`` on one
+    step raises ``AbftError``.  Injection site ``"rpotrf.step"`` (step =
+    j // nb), first attempt only."""
+    def attempt(a, j, inject):
+        a = a.clone()
+        _potrf_step(a, j, nb, gemm_backend, potf2, fmt, _rgemm)
+        cks = abft.checksum(a, fmt)
+        if inject and plan is not None:
+            a = plan.words("rpotrf.step", j // nb, a, fmt)
+        ok, bad_row, bad_col = abft.verify(a, cks, fmt)
+        return a, bool(ok), bad_row, bad_col
+
+    a, report = abft.run_steps("rpotrf.step", range(0, a_p.shape[0], nb),
+                               nb, a_p.to(torch.int32), attempt, max_retries)
+    return torch.tril(a), report
+
+
+def rgetrf_ft(a_p: torch.Tensor, nb: int = 64,
+              gemm_backend: str = "xla_quire", fmt: PositFormat = P32E2,
+              plan=None, max_retries: int = 2):
+    """Checksum-protected blocked partial-pivot LU: returns
+    (LU, ipiv, FtReport), (LU, ipiv) ``rgetrf``'s words fault-free and
+    after recovery.  Contract as ``rpotrf_ft``; site ``"rgetrf.step"``."""
+    m, n = a_p.shape
+
+    def attempt(state, j, inject):
+        a, ipiv = state[0].clone(), state[1].clone()
+        _getrf_step(a, ipiv, j, nb, gemm_backend, getf2, fmt, _rgemm)
+        cks = abft.checksum(a, fmt)
+        if inject and plan is not None:
+            a = plan.words("rgetrf.step", j // nb, a, fmt)
+        ok, bad_row, bad_col = abft.verify(a, cks, fmt)
+        return (a, ipiv), bool(ok), bad_row, bad_col
+
+    ipiv = torch.zeros(min(m, n), dtype=torch.int32, device=a_p.device)
+    (a, ipiv), report = abft.run_steps(
+        "rgetrf.step", range(0, min(m, n), nb), nb,
+        (a_p.to(torch.int32), ipiv), attempt, max_retries)
+    return a, ipiv, report

@@ -16,9 +16,12 @@ factor + p32e2 quire refinement) with the full-width ones;
 ``least_squares_study`` runs the protocol on an over-determined system
 through the QR solvers.
 
+``golden_zone_study`` runs the §5.1 sigma sweep under an
+``obs.scoped()`` collector: each cell's golden-zone occupancy beside its
+digits against binary32 and the refinement's per-sweep rows.
+
 The inputs are made with numpy from ``seed`` exactly as the reference
 makes them, so the same cell gives the same posit words in both packages.
-Not ported yet: ``golden_zone_study`` (observability, ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import _device
+from repro_torch import _device, obs
 from repro_torch.core import posit
 from repro_torch.core.formats import P32E2, PositFormat
 from repro_torch.lapack import decomp, qr, refine, solve
@@ -364,3 +367,111 @@ def least_squares_study(m: int, n: int, sigma: float = 1.0, seed: int = 0,
         e_opt=_backward_error(a64q, x_opt, b64q),
         e_binary32=_backward_error(
             a64, x32.cpu().numpy().astype(np.float64), b64))
+
+
+# --------------------------------------------------------------------------
+# golden-zone occupancy vs accuracy (observability on)
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class GoldenZoneResult:
+    n: int
+    sigma: float
+    algo: str
+    fmt: str
+    occupancy: float        # golden-zone fraction of A's posit words
+    e_plain: float          # plain Rgetrs/Rpotrs backward error
+    e_ir: float             # after quire-exact refinement
+    e_binary32: float       # f32 LAPACK baseline
+    sweeps: list = dataclasses.field(default_factory=list)  # ir.sweep rows
+
+    @property
+    def digits(self) -> float:
+        """Plain posit solve vs binary32 (paper Fig. 7 convention)."""
+        return float(np.log10(self.e_binary32 / self.e_plain))
+
+    @property
+    def digits_gained(self) -> float:
+        return float(np.log10(self.e_plain / max(self.e_ir, 1e-300)))
+
+
+def golden_zone_study(n: int, sigmas, algo: str = "lu", seed: int = 0,
+                      nb: int = 32, iters: int = 3,
+                      gemm_backend: str = "xla_quire",
+                      fmt: PositFormat = P32E2,
+                      device="cuda") -> list[GoldenZoneResult]:
+    """The §5.1 sigma sweep with the observability layer on, on
+    ``device``: each cell records A's golden-zone occupancy (fraction of
+    words with regime exponent k in {0, -1}, where ``fmt`` keeps its
+    widest fraction), the plain, refined and binary32 backward errors, and
+    the refinement's ``ir.sweep`` rows.  The paper's Fig. 7 "accuracy
+    depends on operand scale" effect, with the mechanism made measurable:
+    digits against binary32 track occupancy as sigma walks the operands
+    out of the golden zone."""
+    dev = _device.resolve(device)
+    out = []
+    for sigma in sigmas:
+        if algo == "cholesky":
+            a64 = make_spd(n, sigma, seed)
+        elif algo == "lu":
+            a64 = make_general(n, sigma, seed)
+        else:
+            raise ValueError(algo)
+        b64 = a64 @ np.full((n,), 1.0 / np.sqrt(n))
+        a_p = posit.from_float64(torch.from_numpy(a64).to(dev), fmt)
+        b_p = posit.from_float64(torch.from_numpy(b64).to(dev), fmt)
+        a64q = posit.to_float64(a_p, fmt).cpu().numpy()
+        b64q = posit.to_float64(b_p, fmt).cpu().numpy()
+
+        with obs.scoped() as m:
+            if algo == "cholesky":
+                (x_hi, x_lo), l_p = refine.rposv_ir(
+                    a_p, b_p, iters=iters, nb=nb,
+                    gemm_backend=gemm_backend, fmt=fmt)
+                x_plain = solve.rpotrs(l_p, b_p, fmt=fmt)
+            else:
+                (x_hi, x_lo), (lu, ipiv) = refine.rgesv_ir(
+                    a_p, b_p, iters=iters, nb=nb,
+                    gemm_backend=gemm_backend, fmt=fmt)
+                x_plain = solve.rgetrs(lu, ipiv, b_p, fmt=fmt)
+        sweeps = m.to_dict()["series"].get("ir.sweep", [])
+
+        e_plain = _backward_error(
+            a64q, posit.to_float64(x_plain, fmt).cpu().numpy(), b64q)
+        e_ir = _backward_error(
+            a64q, refine.pair_to_float64(x_hi, x_lo, fmt).cpu().numpy(),
+            b64q)
+        a32 = torch.from_numpy(a64).to(device=dev, dtype=torch.float32)
+        b32 = torch.from_numpy(b64).to(device=dev, dtype=torch.float32)
+        if algo == "cholesky":
+            xhat32 = solve.spotrs(decomp.spotrf(a32), b32)
+        else:
+            lu32, piv = decomp.sgetrf(a32)
+            xhat32 = solve.sgetrs(lu32, piv, b32)
+        e_b32 = _backward_error(
+            a64, xhat32.cpu().numpy().astype(np.float64), b64)
+
+        out.append(GoldenZoneResult(
+            n=n, sigma=float(sigma), algo=algo, fmt=fmt.name,
+            occupancy=obs.golden_zone_fraction(a_p, fmt),
+            e_plain=e_plain, e_ir=e_ir, e_binary32=e_b32, sweeps=sweeps))
+    return out
+
+
+def golden_zone_table(results: list[GoldenZoneResult]) -> str:
+    """Markdown table of a ``golden_zone_study`` sweep and the
+    occupancy/digits correlation line."""
+    lines = ["| sigma | golden-zone occupancy | digits vs b32 | "
+             "IR digits gained | sweeps |",
+             "|---|---|---|---|---|"]
+    for r in results:
+        lines.append(f"| {r.sigma:g} | {r.occupancy:.3f} | {r.digits:+.2f} |"
+                     f" {r.digits_gained:+.2f} | {len(r.sweeps)} |")
+    if len(results) >= 3:
+        occ = np.asarray([r.occupancy for r in results])
+        dig = np.asarray([r.digits for r in results])
+        if occ.std() > 0 and dig.std() > 0:
+            rho = float(np.corrcoef(occ, dig)[0, 1])
+            lines.append(f"\noccupancy/digits correlation: r = {rho:+.3f} "
+                         f"({len(results)} cells)")
+    return "\n".join(lines)

@@ -21,7 +21,7 @@ quire-exact least squares in posit arithmetic (counterpart of
   exact per component, the correction solves R^T R d = A^T r with a
   quire-exact A^T r and quire sweeps, under power-of-two equilibrations;
   ``rgels_mp`` factors in a narrow format (default Posit(16,1)).  The
-  reference's ``_ls_driver`` is ``refine._driver`` here: the port's
+  reference's ``_ls_driver`` runs on ``refine._driver`` here: the port's
   ``residual_quire`` takes the rectangular A as it is, and the driver
   loops over right-hand-side columns.
 * ``sgels``  — the binary32 baseline.
@@ -34,9 +34,17 @@ chained adds run in sequence, in ascending order, and the words are the
 same.  As in the decompositions, the port runs eagerly, so the panels are
 host-bound on a GPU.
 
-Not ported yet: the checksum-protected ``rgeqrf_ft`` (fault tolerance,
-ROADMAP A9) and the observed ``collect`` variant of ``rgeqrf``
-(observability, A8).
+Observability: with a collector open, ``rgeqrf`` of one matrix runs in
+an ``rgeqrf`` span and records its block steps' telemetry (the reference's
+collect variant, same words); ``rgels_ir``/``rgels_mp`` factor through
+it, and with a vector b observe their refinement sweeps.  What the
+reference runs inside a jitted or vmapped program records nothing: the
+block reflector's GEMMs, ``rormqr``, ``rgels``, a batch, and the sweeps of
+a multi-column b.  ``rgeqrf_loop``, which the reference runs eagerly,
+records each GEMM (the hooked ``rgemm``) and no factorization.
+
+``rgeqrf_ft`` is the checksum-protected, host-stepped driver (matrix and
+tau words checksummed after every block step; ``lapack/decomp.py``).
 
 All matrices are int32 posit words of the format ``fmt``.
 """
@@ -46,10 +54,14 @@ import torch
 
 from repro_torch.core import posit
 from repro_torch.core.formats import P16E1, P32E2, PositFormat
-from repro_torch.kernels.ops import rgemm
+from repro_torch.ft import abft
+from repro_torch.kernels.ops import _rgemm, rgemm
 from repro_torch.lapack import refine, solve
 from repro_torch.lapack.blas import chain_sum, rlarfg_chain, rtrsm_left_upper
 from repro_torch.lapack.decomp import check_batched
+from repro_torch.obs import metrics as _obs_metrics
+from repro_torch.obs import numerics as _obs_numerics
+from repro_torch.obs import trace as _obs_trace
 from repro_torch.quire import quire_gemv
 
 
@@ -128,50 +140,81 @@ def _r_words(qr_p: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _apply_block(c_p: torch.Tensor, v_w: torch.Tensor, t_w: torch.Tensor,
-                 trans: bool, gemm_backend: str,
-                 fmt: PositFormat) -> torch.Tensor:
+                 trans: bool, gemm_backend: str, fmt: PositFormat,
+                 gemm=None) -> torch.Tensor:
     """larfb: C <- (I - V T V^T) C (T^T for trans=True) as three Rgemm
-    calls; V^T and T^T are transposed views, which the kernel's pre-pass
+    calls (``gemm``, by default the un-hooked ``_rgemm`` looked up at call
+    time); V^T and T^T are transposed views, which the kernel's pre-pass
     reads through their strides."""
-    w1 = rgemm(v_w, c_p, trans_a=True, backend=gemm_backend, fmt=fmt)
-    w2 = rgemm(t_w, w1, trans_a=trans, backend=gemm_backend, fmt=fmt)
-    return rgemm(v_w, w2, c_p, alpha=-1.0, beta=1.0, backend=gemm_backend,
-                 fmt=fmt)
+    gemm = gemm or _rgemm
+    w1 = gemm(v_w, c_p, trans_a=True, backend=gemm_backend, fmt=fmt)
+    w2 = gemm(t_w, w1, trans_a=trans, backend=gemm_backend, fmt=fmt)
+    return gemm(v_w, w2, c_p, alpha=-1.0, beta=1.0, backend=gemm_backend,
+                fmt=fmt)
 
 
 # --------------------------------------------------------------------------
 # blocked drivers
 # --------------------------------------------------------------------------
 
-def rgeqrf(a_p: torch.Tensor, nb: int = 32, gemm_backend: str = "xla_quire",
-           fmt: PositFormat = P32E2):
-    """Blocked Householder QR of a ([B,] m, n) matrix; returns (QR, tau):
-    R on/above the diagonal, the reflector tails below it, and the
-    ([B,] min(m, n)) tau words."""
+def _geqrf_step(a, taus, j, nb, gemm_backend, fmt, gemm):
+    """Block step ``j`` of the blocked QR on ``a`` and ``taus`` in place:
+    factor the panel, apply its block reflector to the columns on its
+    right.  Returns (panel words, updated columns or None)."""
+    m, n = a.shape[-2:]
+    w = min(nb, min(m, n) - j)
+    panel, tau = geqr2(a[..., j:, j:j + w], fmt=fmt)
+    a[..., j:, j:j + w] = panel
+    taus[..., j:j + w] = tau
+    c2 = None
+    if j + w < n:
+        v_w = _v_words(panel, fmt)
+        t_w = larft(v_w, tau, fmt=fmt)
+        c2 = _apply_block(a[..., j:, j + w:], v_w, t_w, True, gemm_backend,
+                          fmt, gemm)
+        a[..., j:, j + w:] = c2
+    return panel, c2
+
+
+def _rgeqrf_body(a_p, nb, gemm_backend, fmt, gemm=None, collect=False):
+    """The blocked QR; ``collect=True`` also returns the observed
+    variant's per-step telemetry (decomp.py convention)."""
     m, n = a_p.shape[-2:]
     kk = min(m, n)
     a = a_p.to(torch.int32).clone()
     taus = torch.zeros((*a.shape[:-2], kk), dtype=torch.int32,
                        device=a.device)
+    tel = []
     for j in range(0, kk, nb):
-        w = min(nb, kk - j)
-        panel, tau = geqr2(a[..., j:, j:j + w], fmt=fmt)
-        a[..., j:, j:j + w] = panel
-        taus[..., j:j + w] = tau
-        if j + w < n:
-            v_w = _v_words(panel, fmt)
-            t_w = larft(v_w, tau, fmt=fmt)
-            a[..., j:, j + w:] = _apply_block(a[..., j:, j + w:], v_w, t_w,
-                                              True, gemm_backend, fmt)
-    return a, taus
+        panel, c2 = _geqrf_step(a, taus, j, nb, gemm_backend, fmt, gemm)
+        if collect:
+            tel.append(_obs_numerics.factor_step_stats(panel, c2, fmt))
+    return (a, taus, tel) if collect else (a, taus)
+
+
+def rgeqrf(a_p: torch.Tensor, nb: int = 32, gemm_backend: str = "xla_quire",
+           fmt: PositFormat = P32E2):
+    """Blocked Householder QR of a ([B,] m, n) matrix; returns (QR, tau):
+    R on/above the diagonal, the reflector tails below it, and the
+    ([B,] min(m, n)) tau words.  Observed when a collector is open and
+    ``a_p`` is one matrix (module docstring)."""
+    if not (_obs_metrics.enabled() and a_p.dim() == 2):
+        return _rgeqrf_body(a_p, nb, gemm_backend, fmt)
+    with _obs_trace.span("rgeqrf", m=int(a_p.shape[0]), n=int(a_p.shape[1]),
+                         nb=nb, backend=gemm_backend, fmt=fmt.name):
+        qr_p, tau, tel = _rgeqrf_body(a_p, nb, gemm_backend, fmt,
+                                      collect=True)
+    _obs_numerics.emit_factor_steps("rgeqrf", tel)
+    return qr_p, tau
 
 
 def rgeqrf_loop(a_p: torch.Tensor, nb: int = 32,
                 gemm_backend: str = "xla_quire", fmt: PositFormat = P32E2):
     """The reference's dispatch-per-block driver over the same blocks as
-    ``rgeqrf``: the port dispatches every op eagerly either way, so it is
-    ``rgeqrf`` (bit-identical, as the reference's is)."""
-    return rgeqrf(a_p, nb, gemm_backend, fmt)
+    ``rgeqrf`` (the port dispatches every op eagerly either way; the same
+    words).  The reference runs it eagerly, so with a collector open each
+    GEMM is observed (the hooked ``rgemm``) and the factorization is not."""
+    return _rgeqrf_body(a_p, nb, gemm_backend, fmt, gemm=rgemm)
 
 
 def rgeqrf_batched(a_p: torch.Tensor, nb: int = 32,
@@ -179,7 +222,7 @@ def rgeqrf_batched(a_p: torch.Tensor, nb: int = 32,
                    fmt: PositFormat = P32E2):
     """``rgeqrf`` of each matrix of a (batch, m, n) stack, as one batched
     run; returns (QR (batch, m, n), tau (batch, min(m, n)))."""
-    return rgeqrf(check_batched(a_p), nb, gemm_backend, fmt)
+    return _rgeqrf_body(check_batched(a_p), nb, gemm_backend, fmt)
 
 
 def rormqr(a_qr: torch.Tensor, tau_p: torch.Tensor, c_p: torch.Tensor,
@@ -235,7 +278,7 @@ def rgels(a_p: torch.Tensor, b_p: torch.Tensor, nb: int = 32,
     a_p = a_p.to(torch.int32)
     _check_tall(a_p, "rgels")
     n = a_p.shape[-1]
-    qr_p, tau = rgeqrf(a_p, nb, gemm_backend, fmt)
+    qr_p, tau = _rgeqrf_body(a_p, nb, gemm_backend, fmt)
     vec = b_p.dim() < a_p.dim()
     c = rormqr(qr_p, tau, b_p, True, nb, gemm_backend, fmt)
     rhs = c[..., :n, None] if vec else c[..., :n, :]
@@ -286,18 +329,20 @@ def rgels_ir(a_p: torch.Tensor, b_p: torch.Tensor, iters: int = 3,
     Returns ((x_hi, x_lo), (qr, tau)); the factors are of A / s.  b may be
     (m,) or (m, nrhs) (columns in turn); a (batch, m, n) A solves each
     matrix."""
-    a_p = a_p.to(torch.int32)
-    if a_p.dim() == 3:
-        return refine._per_matrix(lambda a, b: rgels_ir(
-            a, b, iters, nb, gemm_backend, fmt), a_p, b_p)
+    return refine._solve_each(_rgels_ir, a_p, b_p, iters, nb, gemm_backend,
+                              fmt)
+
+
+def _rgels_ir(a_p, b_p, iters, nb, gemm_backend, fmt, observe):
     _check_tall(a_p, "rgels_ir")
     av = posit.to_float64(a_p, fmt)
     s = refine.pow2_scale(av)
     a_eq = posit.from_float64(av / s, fmt)      # exact: s is a power of two
-    qr_p, tau = rgeqrf(a_eq, nb, gemm_backend, fmt)
+    factor = rgeqrf if observe else _rgeqrf_body
+    qr_p, tau = factor(a_eq, nb, gemm_backend, fmt)
     solve_fn = _snes_solve_fn(a_eq.mT, _r_words(qr_p, a_p.shape[1]),
                               1.0 / s, fmt, fmt)
-    return refine._driver(a_p, b_p, solve_fn, iters, fmt), (qr_p, tau)
+    return _ls_driver(a_p, b_p, solve_fn, iters, fmt, observe), (qr_p, tau)
 
 
 def rgels_mp(a_p: torch.Tensor, b_p: torch.Tensor, iters: int = 10,
@@ -310,16 +355,26 @@ def rgels_mp(a_p: torch.Tensor, b_p: torch.Tensor, iters: int = 10,
     condition number (contraction ~ cond(A)^2 * eps_factor a sweep), hence
     more default sweeps than ``rgesv_mp``.  Same conventions as
     ``rgels_ir``."""
-    a_p = a_p.to(torch.int32)
-    if a_p.dim() == 3:
-        return refine._per_matrix(lambda a, b: rgels_mp(
-            a, b, iters, nb, gemm_backend, factor_fmt, fmt), a_p, b_p)
+    return refine._solve_each(_rgels_mp, a_p, b_p, iters, nb, gemm_backend,
+                              factor_fmt, fmt)
+
+
+def _rgels_mp(a_p, b_p, iters, nb, gemm_backend, factor_fmt, fmt, observe):
     _check_tall(a_p, "rgels_mp")
     a_lo, s = refine.mp_narrow_matrix(a_p, factor_fmt, fmt)
-    qr_p, tau = rgeqrf(a_lo, nb, gemm_backend, factor_fmt)
+    factor = rgeqrf if observe else _rgeqrf_body
+    qr_p, tau = factor(a_lo, nb, gemm_backend, factor_fmt)
     solve_fn = _snes_solve_fn(a_lo.mT, _r_words(qr_p, a_p.shape[1]),
                               1.0 / s, factor_fmt, fmt)
-    return refine._driver(a_p, b_p, solve_fn, iters, fmt), (qr_p, tau)
+    return _ls_driver(a_p, b_p, solve_fn, iters, fmt, observe), (qr_p, tau)
+
+
+def _ls_driver(a_p, b_p, solve_fn, iters, fmt, observe):
+    """``refine._driver`` as the reference's ``_ls_driver`` observes it:
+    a vector b's sweeps are observed, the columns of a matrix b are not
+    (the reference ``vmap``s them)."""
+    return refine._driver(a_p, b_p, solve_fn, iters, fmt,
+                          observe and b_p.dim() == 1)
 
 
 # --------------------------------------------------------------------------
@@ -337,3 +392,36 @@ def sgels(a32: torch.Tensor, b32: torch.Tensor) -> torch.Tensor:
     qtb = q.mT @ (b[..., None] if vec else b)
     x = torch.linalg.solve_triangular(r, qtb, upper=True)
     return x[..., 0] if vec else x
+
+
+# --------------------------------------------------------------------------
+# checksum-protected driver (exact ABFT, repro_torch.ft)
+# --------------------------------------------------------------------------
+
+def rgeqrf_ft(a_p: torch.Tensor, nb: int = 32,
+              gemm_backend: str = "xla_quire", fmt: PositFormat = P32E2,
+              plan=None, max_retries: int = 2):
+    """Checksum-protected blocked Householder QR: returns
+    (QR, tau, FtReport), (QR, tau) ``rgeqrf``'s words fault-free and after
+    recovery (the ``rpotrf_ft`` contract).  Each block step checksums the
+    matrix and the tau vector.  Injection sites ``"rgeqrf.step"`` (matrix
+    words) and ``"rgeqrf.tau"`` (reflector scalars), step = j // nb,
+    first attempt only."""
+    m, n = a_p.shape
+
+    def attempt(state, j, inject):
+        a, taus = state[0].clone(), state[1].clone()
+        _geqrf_step(a, taus, j, nb, gemm_backend, fmt, _rgemm)
+        cks, cks_t = abft.checksum(a, fmt), abft.checksum(taus[None], fmt)
+        if inject and plan is not None:
+            a = plan.words("rgeqrf.step", j // nb, a, fmt)
+            taus = plan.words("rgeqrf.tau", j // nb, taus, fmt)
+        ok_a, bad_row, bad_col = abft.verify(a, cks, fmt)
+        ok_t, _, _ = abft.verify(taus[None], cks_t, fmt)
+        return (a, taus), bool(ok_a & ok_t), bad_row, bad_col
+
+    taus = torch.zeros(min(m, n), dtype=torch.int32, device=a_p.device)
+    (a, taus), report = abft.run_steps(
+        "rgeqrf.step", range(0, min(m, n), nb), nb,
+        (a_p.to(torch.int32), taus), attempt, max_retries)
+    return a, taus, report

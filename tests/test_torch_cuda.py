@@ -15,7 +15,9 @@ keeps the first (simple) kernel's order of operations per output, so its
 output must equal the simple kernel's bit for bit.  Where the lo planes decide the product (one nonzero
 per row of A), split3 is held to two f32 roundings of the exact product,
 which a GEMM without the lo planes misses (tests/torch_inputs.py).  The
-quire is integer PyTorch code, so on the card it must give the CPU's words.
+quire is integer PyTorch code, so on the card it must give the CPU's words;
+so must the checksums, the observability records of faithful runs and the
+guarded solve ladder.  A collector changes no word and no kernel launch.
 """
 import numpy as np
 import pytest
@@ -339,3 +341,102 @@ def test_cuda_chain_sum_graph_cache_bounded(cuda_device, monkeypatch):
                            want.view(torch.int64))
         assert len(TB._ADD_STEPS) <= 2
         assert next(reversed(TB._ADD_STEPS))[0] == (width,)
+
+
+@pytest.mark.cuda
+def test_cuda_observed_record_matches_cpu(cuda_device):
+    """Observability on the card: the LU and Cholesky records (faithful,
+    so the words are the CPU's) equal the CPU's, and the observed words
+    are the unobserved ones."""
+    from repro_torch import obs
+    from repro_torch.lapack import decomp as TD
+    rng = np.random.default_rng(30)
+    x = rng.standard_normal((64, 64))
+    a = TP.from_float64(torch.from_numpy(x))
+    s = TP.from_float64(torch.from_numpy(x @ x.T + 64 * np.eye(64)))
+    records = []
+    for dev in (cuda_device, torch.device("cpu")):
+        with obs.scoped() as m:
+            lu, piv = TD.rgetrf(a.to(dev), nb=16, gemm_backend="faithful")
+            l_p = TD.rpotrf(s.to(dev), nb=16, gemm_backend="faithful")
+        records.append((m.to_dict(), lu.cpu(), piv.cpu(), l_p.cpu()))
+    (got, *gw), (want, *cw) = records
+    assert ti.record_mismatch(got, want) is None
+    assert all(torch.equal(g, c) for g, c in zip(gw, cw))
+    lu0, _ = TD.rgetrf(a.to(cuda_device), nb=16, gemm_backend="faithful")
+    assert torch.equal(lu0.cpu(), gw[0])
+
+
+@pytest.mark.cuda
+def test_cuda_observed_launch_counts_unchanged(cuda_device):
+    """A collector changes neither the words nor the GEMM kernel's
+    launches of a split3 LU on the card."""
+    from repro_torch import obs
+    from repro_torch.lapack import decomp as TD
+    rng = np.random.default_rng(31)
+    a = ti.posits(rng, (256, 256), -2, 2, device=cuda_device)
+    runs = []
+    for observed in (False, True):
+        TG.reset_launch_counts()
+        if observed:
+            with obs.scoped() as m:
+                lu, piv = TD.rgetrf(a, nb=64, gemm_backend="pallas_split3")
+            assert len(m.to_dict()["series"]["rgetrf.step"]) == 4
+        else:
+            lu, piv = TD.rgetrf(a, nb=64, gemm_backend="pallas_split3")
+        runs.append((TG.launch_counts(), lu, piv))
+    (c0, lu0, p0), (c1, lu1, p1) = runs
+    assert c0 == c1 and c0["posit_gemm_f32"] == 3
+    assert torch.equal(lu0, lu1) and torch.equal(p0, p1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["p32e2", "p16e1", "p8e2"])
+def test_cuda_checksums_match_cpu(cuda_device, name):
+    from repro_torch import ft
+    fmt = TF.FORMATS[name]
+    rng = np.random.default_rng(32)
+    w = ti.posits(rng, (96, 80), -6, 6, fmt)
+    w[5, 7] = fmt.nar_pattern
+    got, want = ft.checksum(w.to(cuda_device), fmt), ft.checksum(w, fmt)
+    for field in ("row", "col", "row_nar", "col_nar", "row_w", "col_w"):
+        assert torch.equal(getattr(got, field).cpu(), getattr(want, field))
+
+
+@pytest.mark.cuda
+def test_cuda_protected_lu_recovers(cuda_device):
+    """rgetrf_ft with the kernel: fault-free the unprotected words; one
+    injected fault detected and recovered to them."""
+    from repro_torch import ft
+    from repro_torch.lapack import decomp as TD
+    rng = np.random.default_rng(33)
+    a = ti.posits(rng, (256, 256), -2, 2, device=cuda_device)
+    lu0, piv0 = TD.rgetrf(a, nb=64, gemm_backend="pallas_split3")
+    lu, piv, rep = TD.rgetrf_ft(a, nb=64, gemm_backend="pallas_split3")
+    assert torch.equal(lu, lu0) and torch.equal(piv, piv0)
+    assert rep.detections == 0
+    plan = ft.make_plan(0, "rgetrf.step", size=256 * 256, steps=4)
+    lu, piv, rep = TD.rgetrf_ft(a, nb=64, gemm_backend="pallas_split3",
+                                plan=plan)
+    assert rep.detections == 1 and rep.retries == 1
+    assert torch.equal(lu, lu0) and torch.equal(piv, piv0)
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_solve_matches_cpu(cuda_device):
+    """The guarded ladder with two injected faults (faithful): the card's
+    pair words and SolveReport are the CPU's."""
+    from repro_torch import ft
+    from repro_torch.lapack import refine as TR
+    rng = np.random.default_rng(34)
+    a = ti.posits(rng, (48, 48), -1, 1)
+    b = ti.posits(rng, (48,), -1, 1)
+    plan = ft.FaultPlan((ft.Fault("rgetrf.step", 0, 17, 21),
+                         ft.Fault("rgetrf.step", 1, 3, 5)))
+    (hg, lg), rg = TR.rgesv_guarded(a.to(cuda_device), b.to(cuda_device),
+                                    nb=16, gemm_backend="faithful",
+                                    plan=plan)
+    (hc, lc), rc = TR.rgesv_guarded(a, b, nb=16, gemm_backend="faithful",
+                                    plan=plan)
+    assert torch.equal(hg.cpu(), hc) and torch.equal(lg.cpu(), lc)
+    assert vars(rg) == vars(rc) and rc.detections >= 2

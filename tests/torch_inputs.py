@@ -118,3 +118,64 @@ def cancelling_operands(rng, m, k, n, fmt: PositFormat = P32E2,
     half = posits(rng, (k // 2, n), -4, 4, fmt)
     b = torch.stack([half, -half], dim=1).reshape(k, n)
     return a.to(device), b.to(device)
+
+
+def record_mismatch(got: dict, want: dict, digits_rel: float = 1e-12):
+    """The first difference between two positscope ``to_dict()`` records,
+    or None: the same keys, counters, gauges and histograms, the same
+    series rows (values of the same type and equal, ``digits_gained``
+    within ``digits_rel`` relative: log10 may round an ulp apart between
+    math libraries), the same number of spans (their times are not
+    compared)."""
+    for part in ("spans", "counters", "gauges", "hists"):
+        if got[part] != want[part]:
+            return f"{part}: {got[part]!r} != {want[part]!r}"
+    if got["series"].keys() != want["series"].keys():
+        return (f"series keys {sorted(got['series'])} != "
+                f"{sorted(want['series'])}")
+    for key, rows in want["series"].items():
+        if len(got["series"][key]) != len(rows):
+            return (f"series {key}: {len(got['series'][key])} rows != "
+                    f"{len(rows)}")
+        for i, (g, w) in enumerate(zip(got["series"][key], rows)):
+            if g.keys() != w.keys():
+                return f"series {key}[{i}] keys {sorted(g)} != {sorted(w)}"
+            for k, wv in w.items():
+                gv = g[k]
+                same = (type(gv) is type(wv)) and (
+                    abs(gv - wv) <= digits_rel * abs(wv)
+                    if k == "digits_gained" else gv == wv)
+                if not same:
+                    return f"series {key}[{i}].{k}: {gv!r} != {wv!r}"
+    return None
+
+
+def cond_matrix(n: int, cond: float, seed: int = 0) -> np.ndarray:
+    """Q1 diag(logspace(0, -log10(cond), n)) Q2 with random orthogonal Q1,
+    Q2: an (n, n) matrix of 2-norm condition number ``cond`` (the guarded
+    solve ladder's cases, tests/test_ft.py)."""
+    rng = np.random.default_rng(seed)
+    q1, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    q2, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return q1 @ np.diag(np.logspace(0, -np.log10(cond), n)) @ q2
+
+
+# The guarded ladder's three cases (tests/test_ft.py:249-293): the matrix's
+# condition number and seed, the seed of b's generator, and the injected
+# faults as Fault keyword sets.
+GUARDED_CASES = {
+    "benign": dict(cond=1e1, seed=2, rhs_seed=10, faults=()),
+    "cond 1e4": dict(cond=1e4, seed=3, rhs_seed=11, faults=()),
+    "two faults": dict(cond=1e1, seed=4, rhs_seed=12, faults=(
+        dict(site="rgetrf.step", step=0, lane=17, bit=21),
+        dict(site="rgetrf.step", step=1, lane=3, bit=5))),
+}
+
+
+def guarded_problem(case: str, n: int, device="cpu"):
+    """(A, b) p32e2 words of a guarded-ladder case at size n."""
+    c = GUARDED_CASES[case]
+    a = posit.from_float64(torch.from_numpy(cond_matrix(n, c["cond"],
+                                                        c["seed"])))
+    b = posits(np.random.default_rng(c["rhs_seed"]), (n,), -4, 4)
+    return a.to(device), b.to(device)
