@@ -28,7 +28,13 @@ a collector changing no word and no launch, a Chrome trace read back;
 ABFT (``[ft]``: the protected LU, Cholesky and QR on the kernel,
 fault-free and with a seeded fault; ``[ft soak]``: five seeded faults at
 every site; ``[guarded]``: the mp -> ir -> plain ladder, card vs CPU),
-and times the kernels: the tiled kernel and the simple one interleaved,
+drives the distributed path (``[dist gemm]``, ``[dist lu]``, ``[dist
+chol]``, ``[dist ir]``, ``[dist ft]``: four spawned ranks on the card as
+a 2x2 grid, gloo collectives on host copies, every rank's product on the
+kernel, the words held to the single-device words, the collective
+bytes to the plans and rank 0's kernel GEMMs at the grid's shapes to the
+plain version; ``[dist nccl]``: one rank on NCCL), and times the
+kernels: the tiled kernel and the simple one interleaved,
 the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks, the whole
 ``rgemm`` trailing-update call and its ``quire_exact`` form, and the
 batched launch against per-matrix ones.
@@ -38,9 +44,9 @@ output is ``{"ok": true, "device": {...}}``; the line before it carries
 the card's name and power limit as ``nvidia-smi`` reports them, and the
 line before that the per-kernel JSON (``launches``: on the §5.1 main
 path; ``launches_by_path``: on it and on the refinement, QR, ensemble,
-golden-zone and protected (``ft``) paths, each counted from zero around
-its own run; ``on_main_path``: launched on one of them; error, times and
-bound).
+golden-zone, protected (``ft``) and distributed (``dist``, every rank's)
+paths, each counted from zero around its own run; ``on_main_path``:
+launched on one of them; error, times and bound).
 
 It imports nothing of JAX or of the JAX package ``repro``, and needs one
 CUDA device; without one it exits with code 2 and prints no result.
@@ -48,6 +54,7 @@ CUDA device; without one it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -139,6 +146,29 @@ FT_CELLS = (("rgetrf", dict(n=1024, nb=64)), ("rpotrf", dict(n=512, nb=64)),
 SOAK = dict(n=96, nb=32, seeds=5)
 GUARDED_SMALL = dict(n=64, nb=16)
 GUARDED_BIG = dict(n=512, nb=64)
+# The distributed path (repro_torch.dist): four ranks on the one card as a
+# 2x2 grid, their collectives over gloo on host copies, every rank's
+# product on the kernel (pallas_split3, nb=64); inputs from the §5.1
+# generators (seed 0, sigma=1).  [dist gemm]: pdgemm at DIST_GEMM and the
+# quire k_split schedule at a shape that does not divide by 64; [dist lu]:
+# cut from [main]'s n=4096 to 2048 (the script's time limit), held to the
+# single-device LU; [dist chol]: [main]'s n, held to [main]'s words;
+# [dist ir]: the refinement drivers, cut from the [refine] cells' n to 128
+# because every rank runs the host-bound quire sweeps again (5.5-10.4 ms a
+# row); [dist ft]: the protected drivers at the [ft] cells' n, a panel
+# fault on rank 3, a kill after step DIST_FT["stop_after"] and its resume,
+# and pdgemm_ft with a fault in each operand on rank 1; [dist nccl]: one
+# rank on NCCL with its tensors on the card, pdgemm and p_rgetrf at
+# [dist ft]'s sizes.
+DIST_GRID = (2, 2)
+DIST_NB = 64
+DIST_GEMM = (2048, 2048, 2048)
+DIST_KSPLIT = (480, 416, 352)
+DIST_LU = 2048
+DIST_CHOL = MAIN_CHOL["n"]
+DIST_IR = dict(n=128, iters=3)
+DIST_FT = dict(lu=1024, chol=512, gemm=1024, stop_after=2, panel_dev=3,
+               gemm_dev=1)
 # The tiled kernel's instantiations the studies run (split3; the last
 # template flag is BATCHED): p32e2 with one K chunk, f32 out and fused
 # encode; p32e2 fused over several chunks (QR's V^T C, K = m - j > 128);
@@ -171,7 +201,8 @@ ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
            "qr": ("posit_gemm_f32", "posit_gemm", "decode_planes"),
            "ensemble": ("posit_gemm_f32", "decode_planes"),
            "golden": ("posit_gemm_f32", "decode_planes"),
-           "ft": ("posit_gemm_f32", "posit_gemm", "decode_planes")}
+           "ft": ("posit_gemm_f32", "posit_gemm", "decode_planes"),
+           "dist": ("posit_gemm_f32", "decode_planes")}
 
 
 def say(*parts):
@@ -538,11 +569,12 @@ class StageTimer:
 class GemmRecorder:
     """Keeps a copy of the operands and the output of every GEMM wrapper
     call that ``rgemm`` makes (``posit_gemm_f32`` and the fused
-    ``posit_gemm``), so that a path's own GEMMs can be held to the plain
-    version afterwards."""
+    ``posit_gemm``), or of the first ``limit`` calls, so that a path's own
+    GEMMs can be held to the plain version afterwards."""
 
-    def __init__(self):
+    def __init__(self, limit=None):
         self.calls = []             # (name, a, b, keywords, output)
+        self.limit = limit
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -552,8 +584,9 @@ class GemmRecorder:
         for name, fn in self.saved.items():
             def recorded(a, b, _fn=fn, _name=name, **kw):
                 out = _fn(a, b, **kw)
-                self.calls.append((_name, a.clone(), b.clone(), kw,
-                                   out.clone()))
+                if self.limit is None or len(self.calls) < self.limit:
+                    self.calls.append((_name, a.clone(), b.clone(), kw,
+                                       out.clone()))
                 return out
             setattr(ops, name, recorded)
         return self
@@ -627,19 +660,48 @@ def run_study(cfg, backend, dev, timed=False, study=None):
     return res, wall, stages, gemm
 
 
+class FactorKeeper:
+    """Keeps what ``decomp.rpotrf`` returns while it is open (the study
+    calls it through the module; a reference to the device words, no
+    copy), so that [dist chol] is held to [main]'s words without
+    factoring again."""
+
+    def __init__(self):
+        self.words = {}
+
+    def __enter__(self):
+        from repro_torch.lapack import decomp
+        self.saved = {"rpotrf": decomp.rpotrf}
+        for name, fn in self.saved.items():
+            def kept(*a, _fn=fn, _name=name, **kw):
+                out = _fn(*a, **kw)
+                self.words[_name] = _as_tuple(out)
+                return out
+            setattr(decomp, name, kept)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.lapack import decomp
+        for name, fn in self.saved.items():
+            setattr(decomp, name, fn)
+        return False
+
+
 def phase_main_path(dev, smi):
     """The §5.1 path at full size, every trailing update on the kernel.
     The launch counts are read right after the two studies: they are the
-    main path's own."""
+    main path's own.  Also returns the Cholesky factor's words."""
     import math
     from repro_torch.kernels import posit_gemm as pg
 
     report = {}
     pg.reset_launch_counts()
+    keeper = FactorKeeper()
     for cfg in (MAIN_LU, MAIN_CHOL):
         before = pg.launch_counts()
-        res, wall, stages, _ = run_study(cfg, "pallas_split3", dev,
-                                         timed=True)
+        with keeper:
+            res, wall, stages, _ = run_study(cfg, "pallas_split3", dev,
+                                             timed=True)
         after = pg.launch_counts()
         launches = after["posit_gemm_f32"] - before["posit_gemm_f32"]
         prepass = after["decode_planes"] - before["decode_planes"]
@@ -665,7 +727,7 @@ def phase_main_path(dev, smi):
     say(f"[main] launches on the main path: {json.dumps(counts)}")
     check(counts["posit_gemm_f32_simple"] == counts["posit_gemm_simple"] == 0,
           "the simple kernel was launched on the main path")
-    return report, counts
+    return report, counts, keeper.words
 
 
 def phase_fused_rgemm(dev):
@@ -1629,6 +1691,447 @@ def phase_guarded(dev, smi):
     return report
 
 
+# --------------------------------------------------------------------------
+# the distributed path: a 2x2 grid of ranks on the one card
+# --------------------------------------------------------------------------
+
+def dist_config() -> dict:
+    """The [dist ...] cells' sizes, handed to the ranks (which import this
+    module afresh)."""
+    return dict(grid=DIST_GRID, nb=DIST_NB, gemm=DIST_GEMM,
+                k_split=DIST_KSPLIT, lu=DIST_LU, chol=DIST_CHOL,
+                ir=dict(DIST_IR), ft=dict(DIST_FT))
+
+
+def dist_inputs(cfg, keys, dev):
+    """The named float64 inputs of the [dist ...] cells as p32e2 words on
+    ``dev``, from the §5.1 generators (``make_general``/``make_spd``,
+    sigma=1, seed 0; the second GEMM operand seed 1)."""
+    import numpy as np
+    from repro_torch.lapack.error_eval import make_general, make_spd
+    m, k, n = cfg["gemm"]
+    km, kk, kn = cfg["k_split"]
+    nir = cfg["ir"]["n"]
+    x_sol = np.full((nir,), 1.0 / np.sqrt(nir))
+
+    def general(shape, seed):      # make_general's draws, any shape
+        return np.random.default_rng(seed).standard_normal(shape)
+    make = {
+        "gemm_a": lambda: general((m, k), 0),
+        "gemm_b": lambda: general((k, n), 1),
+        "ks_a": lambda: general((km, kk), 0),
+        "ks_b": lambda: general((kk, kn), 1),
+        "lu": lambda: make_general(cfg["lu"], 1.0, 0),
+        "chol": lambda: make_spd(cfg["chol"], 1.0, 0),
+        "ir_a": lambda: make_general(nir, 1.0, 0),
+        "ir_b": lambda: make_general(nir, 1.0, 0) @ x_sol,
+        "ir_spd": lambda: make_spd(nir, 1.0, 0),
+        "ir_spd_b": lambda: make_spd(nir, 1.0, 0) @ x_sol,
+        "ft_lu": lambda: make_general(cfg["ft"]["lu"], 1.0, 0),
+        "ft_chol": lambda: make_spd(cfg["ft"]["chol"], 1.0, 0),
+        "ft_a": lambda: make_general(cfg["ft"]["gemm"], 1.0, 0),
+        "ft_b": lambda: make_general(cfg["ft"]["gemm"], 1.0, 1),
+    }
+    return {k: _posits(make[k](), dev) for k in keys}
+
+
+def _posits(x64, dev):
+    import torch
+    from repro_torch.core import posit
+    return posit.from_float64(torch.from_numpy(x64).to(dev))
+
+
+class _RankPhases:
+    """One rank's phase records: wall (its device synchronised, the ranks
+    started together at a barrier), kernel launches, ``dist.*`` counters
+    (with a collector open) and the stage split (with a stage clock on
+    the grid)."""
+
+    def __init__(self, grid):
+        self.grid = grid
+        self.rec = {}
+
+    def run(self, name, fn, observe=False, clock=False):
+        from repro_torch import obs
+        from repro_torch.dist import StageClock, comm
+        from repro_torch.kernels import posit_gemm as pg
+        grid = self.grid
+        comm.barrier(grid)
+        sync = StageClock(grid.device).sync
+        sync()
+        grid.clock = StageClock(grid.device) if clock else None
+        before = pg.launch_counts()
+        t0 = time.perf_counter()
+        with obs.scoped() if observe else contextlib.nullcontext() as m:
+            out = fn()
+        sync()
+        wall = time.perf_counter() - t0
+        after = pg.launch_counts()
+        self.rec[name] = dict(
+            wall_s=wall, launches={k: after[k] - before[k] for k in after},
+            counters=({k: v for k, v in m.to_dict()["counters"].items()
+                       if k.startswith("dist.")} if observe else None),
+            stages_s=dict(grid.clock.secs) if clock else None)
+        grid.clock = None
+        return out
+
+
+def _ft_report(rep):
+    return dict(detections=rep.detections, retries=rep.retries,
+                failed=rep.failed, sites=list(rep.sites))
+
+
+DIST_RANK_KEYS = ("gemm_a", "gemm_b", "ks_a", "ks_b", "lu", "chol", "ir_a",
+                  "ir_b", "ir_spd", "ir_spd_b", "ft_lu", "ft_chol", "ft_a",
+                  "ft_b")
+
+
+def dist_rank(grid, cfg, ckpt_dir):
+    """The body of each rank of the 2x2 grid: every [dist ...] cell in
+    turn.  Rank 0 returns the gathered words and a copy of the first
+    kernel GEMM of the pdgemm cells and the LU and Cholesky (operands
+    and output, for phase_dist to hold to the plain version); every rank
+    its records and its kernel launches (counted from zero over the whole
+    body)."""
+    from repro_torch import ft
+    from repro_torch.dist import (distribute, p_rgesv_ir, p_rgetrf,
+                                  p_rgetrf_ft, p_rposv_ir, p_rpotrf,
+                                  p_rpotrf_ft, pdgemm, pdgemm_ft)
+    from repro_torch.kernels import posit_gemm as pg
+    dev, nb, be = grid.device, cfg["nb"], "pallas_split3"
+    x = dist_inputs(cfg, DIST_RANK_KEYS, dev)
+    ph = _RankPhases(grid)
+    words, reports, gemms = {}, {}, []
+    lead = grid.rank == 0
+
+    def keep(name, t):
+        if lead:
+            words[name] = t.cpu()
+
+    def first_gemm(fn):
+        """``fn()``, rank 0 keeping its first kernel GEMM call."""
+        if not lead:
+            return fn()
+        with GemmRecorder(limit=1) as rec:
+            out = fn()
+        gemms.extend(rec.calls)
+        return out
+
+    def d(name):
+        return distribute(x[name], grid, nb)
+    pg.reset_launch_counts()
+    # [dist gemm]
+    ad, bd = d("gemm_a"), d("gemm_b")
+    for backend in ("pallas_split3", "xla_quire"):
+        c = ph.run(f"gemm.{backend}",
+                   lambda: first_gemm(lambda: pdgemm(ad, bd,
+                                                     backend=backend)),
+                   observe=True, clock=True)
+        keep(f"gemm.{backend}", c.gather())
+    ka, kb = d("ks_a"), d("ks_b")
+    c = ph.run("gemm.k_split", lambda: pdgemm(ka, kb, backend="quire_exact",
+                                              k_split=True), observe=True)
+    keep("gemm.k_split", c.gather())
+    # [dist lu], [dist chol]
+    a = d("lu")
+    lu, ipiv = ph.run("lu", lambda: first_gemm(lambda: p_rgetrf(a, be)),
+                      observe=True, clock=True)
+    keep("lu", lu.gather())
+    keep("lu.ipiv", ipiv)
+    a = d("chol")
+    l_d = ph.run("chol", lambda: first_gemm(lambda: p_rpotrf(a, be)),
+                 observe=True, clock=True)
+    keep("chol", l_d.gather())
+    # [dist ir]
+    it = cfg["ir"]["iters"]
+    a, s = d("ir_a"), d("ir_spd")
+    (hi, lo), _ = ph.run("ir.rgesv_ir",
+                         lambda: p_rgesv_ir(a, x["ir_b"], it, be))
+    keep("ir.rgesv_ir.hi", hi)
+    keep("ir.rgesv_ir.lo", lo)
+    (hi, lo), _ = ph.run("ir.rposv_ir",
+                         lambda: p_rposv_ir(s, x["ir_spd_b"], it, be))
+    keep("ir.rposv_ir.hi", hi)
+    keep("ir.rposv_ir.lo", lo)
+    # [dist ft]
+    a, s = d("ft_lu"), d("ft_chol")
+    lu, ipiv = ph.run("ft.rgetrf", lambda: p_rgetrf(a, be))
+    keep("ft.rgetrf", lu.gather())
+    keep("ft.rgetrf.ipiv", ipiv)
+    lu, ipiv, rep = ph.run("ft.rgetrf_ft", lambda: p_rgetrf_ft(a, be))
+    keep("ft.rgetrf_ft", lu.gather())
+    keep("ft.rgetrf_ft.ipiv", ipiv)
+    reports["rgetrf_ft"] = _ft_report(rep)
+    keep("ft.rpotrf", ph.run("ft.rpotrf", lambda: p_rpotrf(s, be)).gather())
+    out, rep = ph.run("ft.rpotrf_ft", lambda: p_rpotrf_ft(s, be))
+    keep("ft.rpotrf_ft", out.gather())
+    reports["rpotrf_ft"] = _ft_report(rep)
+    plan = ft.FaultPlan((ft.Fault(site="dist.panel", step=1, lane=5, bit=12,
+                                  dev=cfg["ft"]["panel_dev"]),))
+    out, rep = ph.run("ft.rpotrf_ft.panel",
+                      lambda: p_rpotrf_ft(s, be, plan=plan))
+    keep("ft.rpotrf_ft.panel", out.gather())
+    reports["rpotrf_ft.panel"] = _ft_report(rep)
+    stop = cfg["ft"]["stop_after"]
+    killed = ph.run("ft.killed", lambda: p_rgetrf_ft(
+        a, be, checkpoint_dir=ckpt_dir, _stop_after=stop))
+    reports["killed"] = killed[0] is None
+    lu, ipiv, _ = ph.run("ft.resumed", lambda: p_rgetrf_ft(
+        a, be, checkpoint_dir=ckpt_dir, resume=True))
+    keep("ft.resumed", lu.gather())
+    keep("ft.resumed.ipiv", ipiv)
+    ad, bd = d("ft_a"), d("ft_b")
+    keep("ft.pdgemm", ph.run("ft.pdgemm", lambda: first_gemm(
+        lambda: pdgemm(ad, bd, backend=be))).gather())
+    for site in ("pdgemm.a", "pdgemm.b"):
+        plan = ft.FaultPlan((ft.Fault(site=site, step=0, lane=7, bit=20,
+                                      dev=cfg["ft"]["gemm_dev"]),))
+        out, rep = ph.run(f"ft.{site}", lambda: pdgemm_ft(
+            ad, bd, backend=be, plan=plan))
+        keep(f"ft.{site}", out.gather())
+        reports[site] = _ft_report(rep)
+    gemms = [(name, a.cpu(), b.cpu(), kw, out.cpu())
+             for name, a, b, kw, out in gemms]
+    return dict(rank=grid.rank, words=words, reports=reports, gemms=gemms,
+                phases=ph.rec, launches=pg.launch_counts())
+
+
+def nccl_rank(grid, cfg):
+    """The 1x1 NCCL grid: pdgemm and p_rgetrf at [dist ft]'s sizes, with
+    the tiles and the collectives on the card."""
+    from repro_torch.dist import distribute, p_rgetrf, pdgemm
+    from repro_torch.kernels import posit_gemm as pg
+    dev, nb, be = grid.device, cfg["nb"], "pallas_split3"
+    x = dist_inputs(cfg, ("ft_a", "ft_b", "ft_lu"), dev)
+    ph = _RankPhases(grid)
+    pg.reset_launch_counts()
+    ad = distribute(x["ft_a"], grid, nb)
+    bd = distribute(x["ft_b"], grid, nb)
+    c = ph.run("nccl.pdgemm", lambda: pdgemm(ad, bd, backend=be),
+               observe=True)
+    a = distribute(x["ft_lu"], grid, nb)
+    lu, ipiv = ph.run("nccl.lu", lambda: p_rgetrf(a, be), observe=True)
+    return dict(words={"pdgemm": c.gather().cpu(), "lu": lu.gather().cpu(),
+                       "lu.ipiv": ipiv.cpu()},
+                phases=ph.rec, launches=pg.launch_counts())
+
+
+def _sum_counts(*counts):
+    out = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _stage_line(rec):
+    st = dict(rec["stages_s"] or {})
+    st["other"] = rec["wall_s"] - sum(st.values())
+    return " ".join(f"{k} {v:.2f} s" for k, v in st.items())
+
+
+def phase_dist(dev, smi, main_words):
+    """The distributed path on the card: a 2x2 grid of four ranks
+    (spawned; gloo collectives on host copies) runs every [dist ...] cell,
+    then one NCCL rank runs [dist nccl]; the words are held to the
+    single-device words ([main]'s Cholesky, the rest computed here after
+    the ranks end), the ``dist.*`` counters to the plans, and rank 0's
+    first kernel GEMM of each kernel cell to the plain version.  Prints each
+    cell's wall (the slowest rank's) and, where timed by stage, rank 0's
+    split into panel, trsm, update, collective, staging and other.  The
+    ``dist`` path's launches are every rank's, summed."""
+    import tempfile
+    from repro_torch.dist import launch
+    from repro_torch.dist.layout import BlockCyclic
+    from repro_torch.dist.pblas import pdgemm_collective_plan
+    from repro_torch.dist.pdecomp import pfactor_collective_plan
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ops import rgemm
+    from repro_torch.lapack import decomp, refine
+    t_phase = time.perf_counter()
+    _build.lib()                   # the ranks load the library built here
+    cfg = dist_config()
+    (p, q), nb = cfg["grid"], cfg["nb"]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = launch.run(dist_rank, p, q, Path(tmp) / "grid",
+                           args=(cfg, str(Path(tmp) / "ckpt")),
+                           backend="gloo", device="cuda", host_staging=True,
+                           timeout=900)
+        grid_wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (nccl,) = launch.run(nccl_rank, 1, 1, Path(tmp) / "nccl",
+                             args=(cfg,), backend="nccl", device="cuda:0",
+                             timeout=600)
+        nccl_wall = time.perf_counter() - t0
+    w = ranks[0]["words"]
+    x = dist_inputs(cfg, [k for k in DIST_RANK_KEYS if k != "chol"], dev)
+    be = "pallas_split3"
+    calls = [(name, a.to(dev), b.to(dev), kw, out.to(dev))
+             for name, a, b, kw, out in ranks[0]["gemms"]]
+    n_gemm, worst = check_path_gemms("dist", calls)
+    check(n_gemm == 4, f"[dist] rank 0 kept {n_gemm} GEMMs, expected 4")
+    say(f"[dist] rank 0's first kernel GEMM of pdgemm {DIST_GEMM}, p_rgetrf "
+        f"n={DIST_LU}, p_rpotrf n={DIST_CHOL} and pdgemm {DIST_FT['gemm']}^3: "
+        + ", ".join(f"{name} {tuple(a.shape)} @ {tuple(b.shape)}"
+                    f"{' (B transposed)' if b.stride(-2) == 1 else ''}"
+                    for name, a, b, _, _ in calls)
+        + ", held to the plain version on their own operands: within "
+        "sqrt(K)*8e-8 of the exact product, fused words == encode(± kernel "
+        f"f32); max|kernel-plain| {worst:.3e}")
+
+    def wall(name):
+        return max(r["phases"][name]["wall_s"] for r in ranks)
+
+    def eq(name, want):
+        return same_bits(w[name], want)
+    report = dict(grid=f"{p}x{q}", grid_wall_s=grid_wall,
+                  nccl_wall_s=nccl_wall,
+                  phases={k: [r["phases"][k] for r in ranks]
+                          for k in ranks[0]["phases"]},
+                  nccl=nccl["phases"], reports=ranks[0]["reports"])
+
+    # [dist gemm]
+    m, k, n = DIST_GEMM
+    la = BlockCyclic(m=m, n=k, nb=nb, p=p, q=q)
+    lb = BlockCyclic(m=k, n=n, nb=nb, p=p, q=q)
+    for backend in ("pallas_split3", "xla_quire"):
+        name = f"gemm.{backend}"
+        check(eq(name, rgemm(x["gemm_a"], x["gemm_b"], backend=backend)),
+              f"[dist gemm] pdgemm {backend} {DIST_GEMM} != rgemm")
+        plan = pdgemm_collective_plan(la, lb)
+        for r in ranks:
+            got = _dist_bytes(r["phases"][name]["counters"], "pdgemm")
+            check(got == plan, f"[dist gemm] rank {r['rank']} counted "
+                  f"{got}, plan {plan}")
+        rec = ranks[0]["phases"][name]
+        say(f"[dist gemm] pdgemm {backend} {DIST_GEMM} on {p}x{q} == "
+            f"single-device rgemm; wall {wall(name):.3f} s (rank 0: "
+            f"{_stage_line(rec)}); launches/rank "
+            f"{json.dumps({k: v for k, v in rec['launches'].items() if v})}"
+            f"; bytes/rank {json.dumps(plan)} == plan [{smi}]")
+    km, kk, kn = DIST_KSPLIT
+    check(eq("gemm.k_split", rgemm(x["ks_a"], x["ks_b"],
+                                   backend="quire_exact")),
+          f"[dist gemm] k_split {DIST_KSPLIT} != rgemm quire_exact")
+    plan = pdgemm_collective_plan(BlockCyclic(m=km, n=kk, nb=nb, p=p, q=q),
+                                  BlockCyclic(m=kk, n=kn, nb=nb, p=p, q=q),
+                                  k_split=True)
+    for r in ranks:
+        got = _dist_bytes(r["phases"]["gemm.k_split"]["counters"], "pdgemm")
+        check(got == plan, f"[dist gemm] k_split rank {r['rank']} counted "
+              f"{got}, plan {plan}")
+    say(f"[dist gemm] pdgemm quire_exact k_split {DIST_KSPLIT} == "
+        f"single-device rgemm; wall {wall('gemm.k_split'):.3f} s; "
+        f"bytes/rank {json.dumps(plan)} == plan [{smi}]")
+
+    # [dist lu]: held to the single-device LU; [dist chol]: to [main]'s
+    lu_one, piv_one = decomp.rgetrf(x["lu"], nb, be)
+    check(eq("lu", lu_one) and eq("lu.ipiv", piv_one),
+          f"[dist lu] p_rgetrf n={DIST_LU} != single-device rgetrf "
+          "words/ipiv")
+    check(eq("chol", main_words["rpotrf"][0]),
+          f"[dist chol] p_rpotrf n={DIST_CHOL} != [main]'s rpotrf words")
+    for name, algo, nn, tag in (("lu", "getrf", DIST_LU, "dist lu"),
+                                ("chol", "potrf", DIST_CHOL, "dist chol")):
+        lay = BlockCyclic(m=nn, n=nn, nb=nb, p=p, q=q)
+        plan = pfactor_collective_plan(lay, algo)
+        for r in ranks:
+            got = _dist_bytes(r["phases"][name]["counters"],
+                              "r" + algo)
+            check(got == plan, f"[{tag}] rank {r['rank']} counted {got}, "
+                  f"plan {plan}")
+        rec = ranks[0]["phases"][name]
+        steps = -(-nn // nb)
+        strip = 4 * p * lay.lm * lay.ln
+        extra = (f"; the {steps} strip gathers {steps} x "
+                 f"{strip / 2**20:.0f} MiB" if algo == "getrf" else "")
+        held = ("single-device words and ipiv" if algo == "getrf"
+                else "[main]'s words")
+        say(f"[{tag}] p_r{algo} n={nn} nb={nb} {be} on {p}x{q} == {held}; "
+            f"wall {wall(name):.2f} s (rank 0: {_stage_line(rec)}); GEMM "
+            f"launches/rank {rec['launches']['posit_gemm_f32']} (pre-pass "
+            f"{rec['launches']['decode_planes']}); bytes/rank "
+            f"{json.dumps(plan)} == plan{extra} [{smi}]")
+        report[name + "_bytes"] = plan
+
+    # [dist ir]
+    it = DIST_IR["iters"]
+    (hi, lo), _ = refine.rgesv_ir(x["ir_a"], x["ir_b"], it, nb, be)
+    check(eq("ir.rgesv_ir.hi", hi) and eq("ir.rgesv_ir.lo", lo),
+          "[dist ir] p_rgesv_ir pair != single-device rgesv_ir")
+    (hi, lo), _ = refine.rposv_ir(x["ir_spd"], x["ir_spd_b"], it, nb, be)
+    check(eq("ir.rposv_ir.hi", hi) and eq("ir.rposv_ir.lo", lo),
+          "[dist ir] p_rposv_ir pair != single-device rposv_ir")
+    say(f"[dist ir] p_rgesv_ir / p_rposv_ir n={DIST_IR['n']} iters={it} "
+        f"{be} on {p}x{q}: pair words == single-device rgesv_ir / "
+        f"rposv_ir; wall {wall('ir.rgesv_ir'):.2f} / "
+        f"{wall('ir.rposv_ir'):.2f} s [{smi}]")
+
+    # [dist ft]
+    reps = ranks[0]["reports"]
+    lu1, piv1 = decomp.rgetrf(x["ft_lu"], nb, be)
+    l1 = decomp.rpotrf(x["ft_chol"], nb, be)
+    g1 = rgemm(x["ft_a"], x["ft_b"], backend=be)
+    check(eq("ft.rgetrf", lu1) and eq("ft.rgetrf.ipiv", piv1)
+          and eq("ft.rpotrf", l1) and eq("ft.pdgemm", g1),
+          "[dist ft] the plain drivers != single-device words")
+    check(eq("ft.rgetrf_ft", lu1) and eq("ft.rgetrf_ft.ipiv", piv1)
+          and reps["rgetrf_ft"]["detections"] == 0,
+          f"[dist ft] p_rgetrf_ft fault-free: {reps['rgetrf_ft']}")
+    check(eq("ft.rpotrf_ft", l1) and reps["rpotrf_ft"]["detections"] == 0,
+          f"[dist ft] p_rpotrf_ft fault-free: {reps['rpotrf_ft']}")
+    rp = reps["rpotrf_ft.panel"]
+    check(eq("ft.rpotrf_ft.panel", l1) and rp["detections"] == 1
+          and rp["retries"] == 1, f"[dist ft] panel fault: {rp}")
+    check(reps["killed"] and eq("ft.resumed", lu1)
+          and eq("ft.resumed.ipiv", piv1),
+          "[dist ft] kill + resume != the uninterrupted words")
+    for site in ("pdgemm.a", "pdgemm.b"):
+        rs = reps[site]
+        check(eq(f"ft.{site}", g1) and rs["detections"] == 1
+              and rs["retries"] == 1, f"[dist ft] {site} fault: {rs}")
+    say(f"[dist ft] {p}x{q} {be}: p_rgetrf_ft n={DIST_FT['lu']} and "
+        f"p_rpotrf_ft n={DIST_FT['chol']} fault-free == plain == "
+        f"single-device, 0 detections (walls {wall('ft.rgetrf_ft'):.2f} / "
+        f"{wall('ft.rpotrf_ft'):.2f} s vs plain {wall('ft.rgetrf'):.2f} / "
+        f"{wall('ft.rpotrf'):.2f} s); dist.panel fault on rank "
+        f"{DIST_FT['panel_dev']}: {rp['detections']} detection, "
+        f"{rp['retries']} retry, words identical; killed after step "
+        f"{DIST_FT['stop_after']} and resumed: identical (walls "
+        f"{wall('ft.killed'):.2f} + {wall('ft.resumed'):.2f} s); pdgemm_ft "
+        f"{DIST_FT['gemm']}^3 with a fault in pdgemm.a / pdgemm.b on rank "
+        f"{DIST_FT['gemm_dev']}: 1 detection + 1 retry each, words "
+        f"identical [{smi}]")
+
+    # [dist nccl]: [dist ft]'s sizes
+    check(same_bits(nccl["words"]["pdgemm"], g1)
+          and same_bits(nccl["words"]["lu"], lu1)
+          and same_bits(nccl["words"]["lu.ipiv"], piv1),
+          "[dist nccl] 1x1 NCCL words != single-device words")
+    say(f"[dist nccl] 1x1 NCCL grid on the card: pdgemm "
+        f"{DIST_FT['gemm']}^3 and p_rgetrf n={DIST_FT['lu']} == "
+        f"single-device words; walls "
+        f"{nccl['phases']['nccl.pdgemm']['wall_s']:.3f} / "
+        f"{nccl['phases']['nccl.lu']['wall_s']:.2f} s (process start and "
+        f"NCCL set-up included in the spawn's {nccl_wall:.1f} s) [{smi}]")
+    counts = _sum_counts(*(r["launches"] for r in ranks), nccl["launches"])
+    report["phase_wall_s"] = time.perf_counter() - t_phase
+    say(f"[dist] launches on the dist path (all ranks): "
+        f"{json.dumps(counts)}; walls: the 2x2 grid from spawn to end "
+        f"{grid_wall:.1f} s, the NCCL rank {nccl_wall:.1f} s, the phase "
+        f"with its single-device words {report['phase_wall_s']:.1f} s")
+    check(counts["posit_gemm_f32_simple"] == counts["posit_gemm_simple"] == 0,
+          "the simple kernel was launched on the dist path")
+    return report, counts
+
+
+def _dist_bytes(counters, op):
+    pre, suf = f"dist.{op}.", ".bytes"
+    return {k[len(pre):-len(suf)]: int(v) for k, v in counters.items()
+            if k.startswith(pre) and k.endswith(suf)}
+
+
 def interleaved_ms(first, second, reps: int = 20):
     """Device times of two functions in turns (first, second, second,
     first; ``graph_ms`` each): (first's mean, second's mean, all four)."""
@@ -1874,33 +2377,44 @@ def main(argv=None) -> int:
         f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s")
 
     t_start = time.perf_counter()
-    build_s, ptxas = phase_build()
-    phase_plain_codec(dev)
-    phase_codec_kernels(dev)
-    worst = phase_gemm(dev)
-    compared = phase_bit_identity(dev)
-    report, counts = phase_main_path(dev, smi)
-    phase_fused_rgemm(dev)
-    phase_reference_backend(dev, report)
-    phase_word_parity(dev)
-    quire = phase_quire(dev, smi)
-    refine_report, refine_counts = phase_refine(dev, smi)
-    mp_cells = phase_mp_cells(dev, smi)
-    phase_refine_parity(dev)
-    qr_report, qr_counts = phase_qr(dev, smi)
-    lstsq = phase_lstsq(dev, smi)
-    ens_report, ens_counts = phase_ensemble(dev, smi)
-    phase_qr_parity(dev)
-    batched = phase_batched_gemm(dev, smi)
-    obs_report = phase_obs(dev, smi)
-    golden, golden_counts = phase_golden(dev, smi)
-    ft_report, ft_counts = phase_ft(dev, smi)
-    soak = phase_ft_soak(dev, smi)
-    guarded = phase_guarded(dev, smi)
-    rows, grid, extra = phase_timings(dev, worst, smi)
+    phase_s = {}
+
+    def run(fn, *a):
+        """``fn(*a)``, its wall kept in ``phase_s`` under its name."""
+        t0 = time.perf_counter()
+        out = fn(*a)
+        phase_s[fn.__name__.removeprefix("phase_")] = (time.perf_counter()
+                                                       - t0)
+        return out
+    build_s, ptxas = run(phase_build)
+    run(phase_plain_codec, dev)
+    run(phase_codec_kernels, dev)
+    worst = run(phase_gemm, dev)
+    compared = run(phase_bit_identity, dev)
+    report, counts, main_words = run(phase_main_path, dev, smi)
+    run(phase_fused_rgemm, dev)
+    run(phase_reference_backend, dev, report)
+    run(phase_word_parity, dev)
+    quire = run(phase_quire, dev, smi)
+    refine_report, refine_counts = run(phase_refine, dev, smi)
+    mp_cells = run(phase_mp_cells, dev, smi)
+    run(phase_refine_parity, dev)
+    qr_report, qr_counts = run(phase_qr, dev, smi)
+    lstsq = run(phase_lstsq, dev, smi)
+    ens_report, ens_counts = run(phase_ensemble, dev, smi)
+    run(phase_qr_parity, dev)
+    batched = run(phase_batched_gemm, dev, smi)
+    obs_report = run(phase_obs, dev, smi)
+    golden, golden_counts = run(phase_golden, dev, smi)
+    ft_report, ft_counts = run(phase_ft, dev, smi)
+    soak = run(phase_ft_soak, dev, smi)
+    guarded = run(phase_guarded, dev, smi)
+    dist_report, dist_counts = run(phase_dist, dev, smi, main_words)
+    rows, grid, extra = run(phase_timings, dev, worst, smi)
 
     by_path = dict(main=counts, refine=refine_counts, qr=qr_counts,
-                   ensemble=ens_counts, golden=golden_counts, ft=ft_counts)
+                   ensemble=ens_counts, golden=golden_counts, ft=ft_counts,
+                   dist=dist_counts)
     for path, names in ON_PATH.items():
         for name in names:
             check(by_path[path][name] > 0,
@@ -1918,7 +2432,9 @@ def main(argv=None) -> int:
                                      for names in ON_PATH.values()))
                for name, r in rows.items()]
     total_s = time.perf_counter() - t_start
-    say(f"[done] all phases passed in {total_s:.1f} s (build {build_s:.1f} s)")
+    say(f"[done] all phases passed in {total_s:.1f} s (build {build_s:.1f} s)"
+        "; seconds by phase "
+        + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -1926,11 +2442,13 @@ def main(argv=None) -> int:
                  peaks=dict(fp32_flops=PEAK_FP32_FLOPS,
                             bytes_per_s=PEAK_BYTES_PER_S),
                  build_s=build_s, ptxas=ptxas, total_s=total_s,
+                 phase_s=phase_s,
                  identity_comparisons=compared, studies=report,
                  quire=quire, refine=refine_report, mp_cells=mp_cells,
                  qr=qr_report, lstsq=lstsq, ensemble=ens_report,
                  batched=batched, obs=obs_report, golden=golden,
                  ft=ft_report, ft_soak=soak, guarded=guarded,
+                 dist=dist_report,
                  kernels=kernels, timings=list(rows.values()),
                  gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))

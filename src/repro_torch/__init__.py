@@ -22,9 +22,11 @@ refinement, mixed-precision, least-squares and golden-zone studies),
 posit-word telemetry, hooked into ``rgemm``, the factorizations and the
 refinement where the reference records), ``ft`` (exact-ABFT checksums,
 seeded fault injection, the protected GEMMs and the ``_ft``
-factorizations) and ``interop``.  Not yet ported: the distributed stack
-with ``checkpoint`` (its only caller), models, serving and training
-(ROADMAP.md, queue A).
+factorizations), ``dist`` (the block-cyclic distributed path over
+``torch.distributed``: a P x Q grid of ranks, ``pdgemm``, ``p_rpotrf`` /
+``p_rgetrf``, the distributed refinement and the protected drivers),
+``checkpoint`` (the reference's on-disk form) and ``interop``.  Not yet
+ported: models, serving and training (ROADMAP.md, queue A).
 
 Functions that take tensors run where the tensors live; entry points that
 build tensors take ``device="cuda"`` by default and raise when no GPU is

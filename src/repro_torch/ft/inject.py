@@ -24,10 +24,11 @@ Schedule coordinates, as in the reference:
 * ``bit`` — bit to flip (0..31 for posit words, 0..63 for int64 limbs).
 * ``kind`` — ``"flip"`` (XOR one bit), ``"nar"`` (the format's NaR
   pattern), ``"saturate"`` (maxpos).
-* ``dev`` — for distributed sites: the device id whose replica is
-  corrupted (-1 = all).  The single-device transforms here apply every
-  matching fault whatever its ``dev``, as the reference's do when given
-  no device id.
+* ``dev`` — for distributed sites: the linear grid id (r * Q + c, the
+  rank) whose replica is corrupted (-1 = all).  A broadcast fault hits
+  one receiver, not the wire.  ``words``/``limbs`` take the caller's id
+  as ``dev=``; given none (the single-device drivers) they apply every
+  matching fault whatever its ``dev``, as the reference's do.
 
 Narrow formats' words are sign-extended int32: a flip above the format's
 bits changes the stored word and not its value, which the raw word sums
@@ -85,10 +86,18 @@ class FaultPlan:
         return tuple(f for f in self.faults
                      if f.site == site and f.step in (-1, step))
 
+    def _hits(self, site: str, step: int, dev=None):
+        """The faults at (site, step) that hit device ``dev`` (all of them
+        when ``dev`` is None)."""
+        return tuple(f for f in self.at(site, step)
+                     if dev is None or f.dev < 0 or f.dev == dev)
+
     def words(self, site: str, step: int, words: torch.Tensor,
-              fmt: PositFormat = P32E2):
-        """Apply every matching fault to an int32 posit-word tensor."""
-        hits = self.at(site, step)
+              fmt: PositFormat = P32E2, dev=None):
+        """Apply every matching fault to an int32 posit-word tensor
+        (``dev``: the calling rank's linear grid id, which gates
+        device-targeted faults)."""
+        hits = self._hits(site, step, dev)
         if not hits:
             return words
         out = words.to(torch.int32).clone(
@@ -104,10 +113,11 @@ class FaultPlan:
                 flat[i] = (1 << (fmt.nbits - 1)) - 1
         return out
 
-    def limbs(self, site: str, step: int, limbs: torch.Tensor):
+    def limbs(self, site: str, step: int, limbs: torch.Tensor, dev=None):
         """Apply matching bit flips to an int64 quire limb tensor
-        (``nar``/``saturate`` are word-domain kinds; ignored here)."""
-        hits = [f for f in self.at(site, step) if f.kind == "flip"]
+        (``nar``/``saturate`` are word-domain kinds; ignored here;
+        ``dev`` as in ``words``)."""
+        hits = [f for f in self._hits(site, step, dev) if f.kind == "flip"]
         if not hits:
             return limbs
         out = limbs.to(torch.int64).clone(

@@ -18,6 +18,8 @@ which a GEMM without the lo planes misses (tests/torch_inputs.py).  The
 quire is integer PyTorch code, so on the card it must give the CPU's words;
 so must the checksums, the observability records of faithful runs and the
 guarded solve ladder.  A collector changes no word and no kernel launch.
+Four ranks on the one card (gloo, host-staged collectives) factor a 2x2
+block-cyclic LU whose words and pivots must equal the single-device LU's.
 """
 import numpy as np
 import pytest
@@ -440,3 +442,28 @@ def test_cuda_guarded_solve_matches_cpu(cuda_device):
                                     plan=plan)
     assert torch.equal(hg.cpu(), hc) and torch.equal(lg.cpu(), lc)
     assert vars(rg) == vars(rc) and rc.detections >= 2
+
+
+@pytest.mark.cuda
+def test_cuda_host_staged_2x2_rgetrf(cuda_device, tmp_path):
+    """Four gloo ranks on one GPU (host-staged collectives): a 2x2
+    ``p_rgetrf`` at n=256 with every rank's trailing updates on the
+    kernel gives the single-device LU's words and pivots."""
+    from repro_torch.dist import launch
+    from repro_torch.kernels import _build
+    from repro_torch.lapack import decomp
+    from repro_torch.lapack.error_eval import make_general
+    import torch_dist_cases as tc
+    n, nb = 256, 64
+    _build.lib()                  # build once; the ranks load the cache
+    ranks = launch.run(tc.card_rgetrf, 2, 2, tmp_path / "grid",
+                       args=(n, nb), backend="gloo", device="cuda",
+                       host_staging=True, timeout=600)
+    a = TP.from_float64(torch.from_numpy(make_general(n, 1.0, 0))
+                        .to(cuda_device))
+    lu, ipiv = decomp.rgetrf(a, nb=nb, gemm_backend="pallas_split3")
+    for rank in ranks:
+        assert np.array_equal(rank["lu"], lu.cpu().numpy())
+        assert np.array_equal(rank["ipiv"], ipiv.cpu().numpy())
+        assert rank["launches"]["posit_gemm_f32"] == n // nb - 1
+        assert rank["launches"]["decode_planes"] == n // nb - 1

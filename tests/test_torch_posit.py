@@ -369,6 +369,7 @@ def test_port_imports_no_jax():
         import repro_torch.core.posit, repro_torch.kernels.ops
         import repro_torch.kernels._build, repro_torch.lapack
         import repro_torch.quire, repro_torch.lapack.refine
+        import repro_torch.dist, repro_torch.checkpoint
         sys.path.insert(0, %r)
         import chip_smoke
         bad = sorted(m for m in sys.modules
