@@ -33,7 +33,13 @@ chol]``, ``[dist ir]``, ``[dist ft]``: four spawned ranks on the card as
 a 2x2 grid, gloo collectives on host copies, every rank's product on the
 kernel, the words held to the single-device words, the collective
 bytes to the plans and rank 0's kernel GEMMs at the grid's shapes to the
-plain version; ``[dist nccl]``: one rank on NCCL), and times the
+plain version; ``[dist nccl]``: one rank on NCCL), drives the LM
+serving path (``[models]``: each model family's tiny config on the card
+against the CPU; ``[serve]``: qwen2-0.5b at its published widths with
+p16e1 weights, every linear of every decode step and prefill token on the
+GEMM kernel, a p16e1 paged KV cache, a seeded trace replayed batched and
+sequentially with equal tokens, the first decode step's kernel GEMMs held
+to the plain version), and times the
 kernels: the tiled kernel and the simple one interleaved,
 the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks, the whole
 ``rgemm`` trailing-update call and its ``quire_exact`` form, and the
@@ -44,8 +50,9 @@ output is ``{"ok": true, "device": {...}}``; the line before it carries
 the card's name and power limit as ``nvidia-smi`` reports them, and the
 line before that the per-kernel JSON (``launches``: on the §5.1 main
 path; ``launches_by_path``: on it and on the refinement, QR, ensemble,
-golden-zone, protected (``ft``) and distributed (``dist``, every rank's)
-paths, each counted from zero around its own run; ``on_main_path``:
+golden-zone, protected (``ft``), distributed (``dist``, every rank's)
+and serving (``serve``: both replays of ``[serve]``) paths, each counted
+from zero around its own run; ``on_main_path``:
 launched on one of them; error, times and bound).
 
 It imports nothing of JAX or of the JAX package ``repro``, and needs one
@@ -81,10 +88,11 @@ MAIN_CHOL = dict(n=1024, sigma=1.0, algo="cholesky", nb=64)
 # an H100), the Cholesky and the mixed study from 1024 to 512 once the
 # QR and ensemble phases came in (814.6 s with them at 1024 on a fast
 # host, where the slowest host seen runs the host-bound phases ~1.5x
-# slower).
+# slower), and the mixed study from 512 to 256 once the serving phases
+# came in (74.70 s at 512; the whole script took 1067.6 s on a slow host).
 REFINE_LU = dict(n=1024, sigma=1.0, algo="lu", nb=64, iters=3)
 REFINE_CHOL = dict(n=512, sigma=1.0, algo="cholesky", nb=64, iters=3)
-MIXED = dict(n=512, sigma=1.0, algo="lu", nb=64)
+MIXED = dict(n=256, sigma=1.0, algo="lu", nb=64)
 # The reference's mixed-precision acceptance cells
 # (benchmarks/bench_formats.py bench_mixed, tests/test_formats.py).
 MP_CELLS = (("lu", 64, 1e-2), ("lu", 64, 1.0), ("lu", 64, 1e2),
@@ -131,15 +139,17 @@ MIXED_SHAPE = (960, 64, 960)        # the n=1024 LU studies' first update
 # The observability and fault-tolerance paths.  [obs]: the §5.1 LU and
 # Cholesky with faithful under a collector, GPU vs CPU, and the split3 LU
 # observed vs unobserved.  [golden]: golden_zone_study on Fig. 7's sigma
-# grid; n=512, not the main cell's 4096, because each cell is a refinement
-# LU whose quire sweeps are host-bound (the n=1024 refinement LU took 45 s).
+# grid; n=256, not the main cell's 4096, because each cell is a refinement
+# LU whose quire sweeps are host-bound (the n=1024 refinement LU took 45 s;
+# the five cells at n=512 took 130.64 s, 109.39 s of it quire sweeps: cut
+# to 256 to make room for [models] and [serve] in the time limit).
 # [ft]: the protected drivers at the sizes their checksums were sized for;
 # [ft soak]: benchmarks/bench_ft.py's soak (five seeds a site, n=96,
 # nb=32); [guarded]: the ladder's three cases of tests/test_ft.py:249-293,
 # then the benign one at n=512 on the kernel.
 OBS_PARITY_N = 128
 OBS_LU = dict(n=1024, nb=64)
-GOLDEN = dict(n=512, sigmas=(1e-2, 1.0, 1e2, 1e4, 1e6), algo="lu", nb=64,
+GOLDEN = dict(n=256, sigmas=(1e-2, 1.0, 1e2, 1e4, 1e6), algo="lu", nb=64,
               iters=3)
 FT_CELLS = (("rgetrf", dict(n=1024, nb=64)), ("rpotrf", dict(n=512, nb=64)),
             ("rgeqrf", dict(m=192, n=128, nb=32)))
@@ -169,18 +179,37 @@ DIST_CHOL = MAIN_CHOL["n"]
 DIST_IR = dict(n=128, iters=3)
 DIST_FT = dict(lu=1024, chol=512, gemm=1024, stop_after=2, panel_dev=3,
                gemm_dev=1)
+# The LM serving path (repro_torch.models, repro_torch.serving).  [models]:
+# each family's tiny config (the archs of tests/test_serving.py) at
+# policy="f32", the card against the CPU from the same seeded weights.
+# [serve]: qwen2-0.5b at its published widths (24 layers, d_model 896,
+# 14/2 heads of 64, d_ff 4864, vocab 151936, tied embeddings), seeded
+# random weights at the reference's init scales, quantized to p16e1 with
+# the kernel backend (168 linears a decode step on the GEMM kernel), a
+# p16e1 paged KV pool, and the engine of benchmarks/bench_serve.py
+# (page_size 16, max_seq 128) at decode width 4 on a seeded trace.
+MODEL_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-780m",
+               "zamba2-2.7b", "gemma3-12b", "whisper-tiny", "internvl2-26b")
+MODEL_RTOL = 1e-5            # f32 logits, card vs CPU (library sum order)
+MODEL_QUANT_RTOL = 1e-3      # p16e1 kernel backend: activation words may flip
+SERVE_ARCH = "qwen2-0.5b"
+SERVE_ENGINE = dict(max_batch=4, page_size=16, max_seq=128)
+SERVE_TRAFFIC = dict(n_requests=6, mean_plen=24, mean_new=12,
+                     arrival_rate=0.5, seed=0)
 # The tiled kernel's instantiations the studies run (split3; the last
 # template flag is BATCHED): p32e2 with one K chunk, f32 out and fused
 # encode; p32e2 fused over several chunks (QR's V^T C, K = m - j > 128);
 # p16e1 f32 (the mixed study) and fused (rgels_mp's QR); the batched p32e2
-# f32 form (the ensemble's updates).  ptxas must report them, and no
+# f32 form (the ensemble's updates); p16e1 f32 over several chunks (the
+# serve path's quantized linears, bk=32).  ptxas must report them, and no
 # spills in any.
 MAIN_PATH_KERNELS = ("posit_gemm_kernel<32,2,0,1,0,0>",
                      "posit_gemm_kernel<32,2,0,1,1,0>",
                      "posit_gemm_kernel<32,2,0,0,1,0>",
                      "posit_gemm_kernel<16,1,0,1,0,0>",
                      "posit_gemm_kernel<16,1,0,1,1,0>",
-                     "posit_gemm_kernel<32,2,0,1,0,1>")
+                     "posit_gemm_kernel<32,2,0,1,0,1>",
+                     "posit_gemm_kernel<16,1,0,0,0,0>")
 SOURCES = {"posit_gemm_f32": "posit_gemm.cu", "posit_gemm": "posit_gemm.cu",
            "decode_planes": "posit_gemm.cu",
            "decode_split_f32": "posit_codec.cu",
@@ -202,7 +231,8 @@ ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
            "ensemble": ("posit_gemm_f32", "decode_planes"),
            "golden": ("posit_gemm_f32", "decode_planes"),
            "ft": ("posit_gemm_f32", "posit_gemm", "decode_planes"),
-           "dist": ("posit_gemm_f32", "decode_planes")}
+           "dist": ("posit_gemm_f32", "decode_planes"),
+           "serve": ("posit_gemm_f32", "decode_planes", "encode_posit_f32")}
 
 
 def say(*parts):
@@ -2132,6 +2162,401 @@ def _dist_bytes(counters, op):
             if k.startswith(pre) and k.endswith(suf)}
 
 
+def tree_to(tree, dev):
+    """A param or cache tree with every tensor moved to ``dev`` (names
+    and other leaves kept)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev) if torch.is_tensor(tree) else tree
+
+
+def rel_err(got, want) -> float:
+    import torch
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+
+
+def phase_models(dev, smi):
+    """Each family's tiny model (policy f32) on the card against the same
+    port on the CPU from the same seeded weights: the prefill forward's
+    logits, then the decode path over the prompt and three steps more
+    (f32 caches; the CPU's tokens fed to both), every logit vector within
+    MODEL_RTOL.  A p16e1-quantized tiny qwen2 with the kernel backend:
+    one GEMM launch per linear, logits within MODEL_QUANT_RTOL of its
+    plain CPU run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.models import (forward_prefill, init_cache,
+                                    init_params, serve_step)
+    from repro_torch.serving import QuantConfig, quantize_params
+    from repro_torch.serving.engine import _build_cross_kv
+    report = {}
+    for arch in MODEL_ARCHS:
+        cfg = get_tiny_config(arch, policy="f32")
+        cpu = init_params(0, cfg, device="cpu")
+        gpu = tree_to(cpu, dev)
+        rng = np.random.default_rng(0)
+        toks = torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, 8)).astype(np.int32))
+        batch = {"tokens": toks}
+        if cfg.family == "encdec":
+            batch["frames"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.enc_seq, cfg.d_model)).astype(np.float32))
+        if cfg.family == "vlm":
+            batch["vis"] = torch.from_numpy(rng.standard_normal(
+                (2, cfg.vis_tokens, cfg.d_model)).astype(np.float32))
+        errs = [rel_err(forward_prefill(gpu, tree_to(batch, dev), cfg),
+                        forward_prefill(cpu, batch, cfg))]
+        caches = []
+        for params, d in ((cpu, torch.device("cpu")), (gpu, dev)):
+            cache = init_cache(cfg, 2, 16, dtype=torch.float32, device=d)
+            if cfg.family == "encdec":
+                cache = _build_cross_kv(params, cfg, cache,
+                                        {"frames": batch["frames"]})
+            caches.append(cache)
+        tok = toks[:, :1]
+        for t in range(toks.shape[1] + 3):
+            c_log, caches[0] = serve_step(cpu, caches[0], tok, t, cfg)
+            g_log, caches[1] = serve_step(gpu, caches[1], tok.to(dev), t,
+                                          cfg)
+            errs.append(rel_err(g_log, c_log))
+            tok = toks[:, t + 1:t + 2] if t + 1 < toks.shape[1] else \
+                torch.argmax(c_log, dim=-1).to(torch.int32)[:, None]
+        worst = max(errs)
+        check(worst < MODEL_RTOL, f"[models] {arch}: logits on the card "
+              f"{worst:.3g} from the CPU's (relative), limit {MODEL_RTOL}")
+        report[arch] = dict(family=cfg.family, rel_errs=errs)
+        say(f"[models] {arch} ({cfg.family}, {cfg.n_layers} layers): "
+            "prefill, then 8 prompt tokens and 3 decode steps through the "
+            "decode path, max relative logit difference card vs CPU "
+            f"{worst:.3e} (limit {MODEL_RTOL})")
+    cfg = get_tiny_config("qwen2-0.5b", policy="f32")
+    q_cpu = quantize_params(init_params(0, cfg, device="cpu"),
+                            QuantConfig(fmt="p16e1", backend="pallas"))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 8)).astype(np.int32))
+    before = pg.launch_counts()
+    got = forward_prefill(tree_to(q_cpu, dev), {"tokens": toks.to(dev)}, cfg)
+    torch.cuda.synchronize()
+    after = pg.launch_counts()
+    launches = {k: after[k] - before[k] for k in after if after[k] - before[k]}
+    err = rel_err(got, forward_prefill(q_cpu, {"tokens": toks}, cfg))
+    want = 7 * cfg.n_layers
+    check(launches == {"posit_gemm_f32": want, "decode_planes": want,
+                       "encode_posit_f32": want},
+          f"[models] quantized qwen2: launches {launches}, expected {want} "
+          "GEMM, pre-pass and activation-encode launches (one per linear)")
+    check(err < MODEL_QUANT_RTOL, f"[models] quantized qwen2 on the kernel: "
+          f"logits {err:.3g} from the plain CPU run, limit {MODEL_QUANT_RTOL}")
+    say(f"[models] qwen2 tiny, p16e1 weights, kernel backend: {want} GEMM "
+        f"launches, logits {err:.3e} from the plain split3 CPU run "
+        f"(limit {MODEL_QUANT_RTOL}) [{smi}]")
+    report["quantized_qwen2"] = dict(rel_err=err, launches=launches)
+    return report
+
+
+class ServeClock:
+    """Wraps the engine's decode step and its prefill: the wall of each
+    call (a device sync on either side), the prompt tokens prefilled,
+    and, with ``record``, the kernel GEMMs of the first decode step
+    (``GemmRecorder``)."""
+
+    def __init__(self, record=False):
+        self.step_s, self.prefill_s = [], []
+        self.prefill_tokens = 0
+        self.record = record
+        self.first_gemms = None
+
+    def __enter__(self):
+        import torch
+        from repro_torch.serving import engine
+        self.mod = engine
+        self.saved = (engine._engine_step, engine._prefill_scan)
+        step, pre = self.saved
+
+        def timed_step(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if self.record and self.first_gemms is None:
+                with GemmRecorder() as rec:
+                    out = step(*a, **kw)
+                self.first_gemms = rec.calls
+            else:
+                out = step(*a, **kw)
+            torch.cuda.synchronize()
+            self.step_s.append(time.perf_counter() - t0)
+            return out
+
+        def timed_prefill(params, cache, prompts, plen, cfg):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pre(params, cache, prompts, plen, cfg)
+            torch.cuda.synchronize()
+            self.prefill_s.append(time.perf_counter() - t0)
+            self.prefill_tokens += int(plen)
+            return out
+        engine._engine_step, engine._prefill_scan = timed_step, timed_prefill
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._engine_step, self.mod._prefill_scan = self.saved
+        return False
+
+
+def phase_serve(dev, smi):
+    """qwen2-0.5b at full width through the serving path: seeded weights
+    quantized to p16e1 with the kernel backend, the paged p16e1 KV pool,
+    a seeded trace replayed batched (4 in flight) and sequentially (1):
+    the tokens equal bit for bit; every linear of every step and prefill
+    token on the GEMM kernel (launches counted from zero around the two
+    replays); the first sequential decode step's 168 kernel GEMMs held to
+    the plain version, and at each of their four shapes the encode and
+    pre-pass kernels to theirs; quant_matmul's kernel backend within 1e-3
+    of the decoded-matmul one; 2.0x weight and KV storage; the serve.*
+    counters equal the engine's counts.  Times the replay, the decode
+    step, the prefill per token, the kernel and torch.matmul at each
+    shape, and profiles three decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.core import posit
+    from repro_torch.core.formats import P16E1
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.models import init_params
+    from repro_torch.serving import (Engine, QuantConfig, TrafficConfig,
+                                     param_bytes, quantize_params, replay,
+                                     synth_trace)
+    from repro_torch.serving import quantize as qz
+    from repro_torch.serving.kv_cache import kv_layer_indices
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH, policy="f32")
+    params = init_params(0, cfg, dev)
+    n_params = param_bytes(params)["f32_bytes"] // 4
+    qp = quantize_params(params, QuantConfig(fmt="p16e1", backend="pallas"))
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+    pb = param_bytes(qp)
+    check(pb["q_f32_bytes"] == 2 * pb["word_bytes"],
+          f"[serve] weight storage {pb}: not 2.0x")
+    trace = synth_trace(TrafficConfig(vocab=cfg.vocab, **SERVE_TRAFFIC))
+    say(f"[serve] {cfg.name}: {n_params} params, {cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}x"
+        f"{cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; p16e1 words "
+        f"{pb['word_bytes']} B + scales {pb['scale_bytes']} B against "
+        f"{pb['q_f32_bytes']} B f32 (2.0x); init + quantize {setup_s:.2f} s;"
+        f" trace: {len(trace)} requests, prompts "
+        f"{[len(r.prompt) for r in trace]}, max_new "
+        f"{[r.max_new for r in trace]}")
+
+    def engine(inflight):
+        return Engine(qp, cfg, kv_fmt="p16e1", max_inflight=inflight,
+                      **SERVE_ENGINE)
+
+    pg.reset_launch_counts()
+    eng_b = engine(SERVE_ENGINE["max_batch"])
+    kb = eng_b.kv_bytes()
+    check(kb["f32_bytes"] == 2 * kb["bytes"], f"[serve] KV pool {kb}: not "
+          "2.0x")
+    with obs.scoped() as m, ServeClock() as clock_b:
+        rep_b = replay(eng_b, trace)
+    with ServeClock(record=True) as clock_s:
+        rep_s = replay(engine(1), trace)
+    torch.cuda.synchronize()
+    counts = pg.launch_counts()
+    for rid, toks in rep_b["outputs"].items():
+        check(np.array_equal(toks, rep_s["outputs"][rid]),
+              f"[serve] request {rid}: batched tokens {toks.tolist()} != "
+              f"sequential {rep_s['outputs'][rid].tolist()}")
+    check(len(rep_b["outputs"]) == len(trace), "[serve] not every request "
+          "finished")
+    # every linear of every decode step and prefill token: one GEMM, one
+    # pre-pass, one activation encode; every decode step and admission
+    # also encodes its K and V rows once per attention layer
+    linears = 7 * cfg.n_layers
+    calls = sum(len(c.step_s) + c.prefill_tokens for c in (clock_b, clock_s))
+    kv_writes = 2 * len(kv_layer_indices(cfg)) * sum(
+        len(c.step_s) + len(c.prefill_s) for c in (clock_b, clock_s))
+    check(counts["posit_gemm_f32"] == counts["decode_planes"]
+          == linears * calls
+          and counts["encode_posit_f32"] == linears * calls + kv_writes
+          and counts["posit_gemm"] == counts["posit_gemm_f32_simple"]
+          == counts["posit_gemm_simple"] == counts["decode_split_f32"] == 0,
+          f"[serve] launches {counts}, expected {linears} GEMM, pre-pass "
+          f"and encode launches for each of {calls} decode steps and "
+          f"prefill tokens, and {kv_writes} K/V encodes")
+    c = m.to_dict()
+    check(c["counters"].get("serve.steps") == rep_b["steps"]
+          == eng_b.step_count and c["counters"].get("serve.tokens")
+          == rep_b["tokens"] == sum(len(v) for v in
+                                    rep_b["outputs"].values()),
+          f"[serve] counters {c['counters']} != the engine's steps "
+          f"{rep_b['steps']} / tokens {rep_b['tokens']}")
+    check(0.0 <= c["gauges"]["serve.batch_occupancy"] <= 1.0
+          and c["gauges"]["serve.kv_pages_in_use"] < eng_b.spec.n_pages,
+          f"[serve] gauges {c['gauges']}")
+    n_gemms, worst = check_path_gemms("serve", clock_s.first_gemms)
+    shapes = sorted({(a.shape[0], a.shape[1], b.shape[1])
+                     for _, a, b, _, _ in clock_s.first_gemms})
+    m_rows = SERVE_ENGINE["max_batch"]
+    want_shapes = sorted({(m_rows, cfg.d_model, cfg.d_q),
+                          (m_rows, cfg.d_model, cfg.d_kv),
+                          (m_rows, cfg.d_model, cfg.d_ff),
+                          (m_rows, cfg.d_ff, cfg.d_model)})
+    check(n_gemms == linears and shapes == want_shapes,
+          f"[serve] first decode step: {n_gemms} GEMMs at {shapes}, "
+          f"expected {linears} at {want_shapes}")
+    step_ms = 1e3 * float(np.mean(clock_b.step_s))
+    prefill_ms = 1e3 * sum(clock_b.prefill_s) / clock_b.prefill_tokens
+    say(f"[serve] batched (max_inflight {SERVE_ENGINE['max_batch']}) == "
+        f"sequential tokens for all {len(trace)} requests; batched replay: "
+        f"{rep_b['tokens']} tokens, {rep_b['requests']} requests in "
+        f"{rep_b['wall_s']:.3f} s = {rep_b['tok_s']:.3f} tok/s, "
+        f"{rep_b['req_s']:.4f} req/s, {rep_b['steps']} engine steps "
+        f"({len(clock_b.step_s)} decode steps at {step_ms:.2f} ms each, "
+        f"occupancy {rep_b['occupancy']:.3f}), prefill "
+        f"{clock_b.prefill_tokens} tokens at {prefill_ms:.2f} ms a token; "
+        f"sequential replay {rep_s['wall_s']:.3f} s ({rep_s['tok_s']:.3f} "
+        f"tok/s, {len(clock_s.step_s)} decode steps) [{smi}]")
+    say(f"[serve] launches on the serve path (both replays): "
+        f"{json.dumps(counts)} ({linears} x {calls} GEMMs, {kv_writes} "
+        f"K/V encodes); counters "
+        f"{json.dumps(c['counters'])}; the first decode step's {n_gemms} "
+        f"kernel GEMMs within sqrt(K)*8e-8 of the exact product, "
+        f"max|kernel-plain| {worst:.3e}")
+
+    # Per shape: the kernel (pre-pass + GEMM, CUDA graph), its pre-pass,
+    # the plain version, torch.matmul f32 on the decoded words (the xla
+    # backend's product), and quant_matmul's two backends on the real
+    # layer-0 leaves (host clock: the activation encode included).
+    leaf_of = {(cfg.d_model, cfg.d_q): qp["layers"][0]["attn"]["wq"]["w"],
+               (cfg.d_model, cfg.d_kv): qp["layers"][0]["attn"]["wk"]["w"],
+               (cfg.d_model, cfg.d_ff): qp["layers"][0]["ffn"]["w_up"]["w"],
+               (cfg.d_ff, cfg.d_model):
+                   qp["layers"][0]["ffn"]["w_down"]["w"]}
+    rng = np.random.default_rng(5)
+    timings = []
+    for shape in shapes:
+        mm, kk, nn = shape
+        a, b = next((a, b) for _, a, b, _, _ in clock_s.first_gemms
+                    if (a.shape[0], a.shape[1], b.shape[1]) == shape)
+        kernel_ms = graph_ms(lambda: pg.posit_gemm_f32(a, b, bk=32,
+                                                       fmt=P16E1), 20)
+        prepass_ms = graph_ms(lambda: pg.decode_planes(a, b, P16E1), 20)
+        plain_ms = cuda_ms(lambda: pg.posit_gemm_f32_plain(
+            a, b, bk=32, fmt=P16E1), 3)
+        af = posit.to_float32_bits(a, P16E1)
+        bf = posit.to_float32_bits(b, P16E1)
+        matmul_ms = cuda_ms(lambda: torch.matmul(af, bf), 20)
+        flops, nbytes = 2.0 * mm * kk * nn, 4.0 * (mm * kk + kk * nn + mm * nn)
+        t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        bound_ms = max(t_ops, t_bytes) * 1e3
+        by = "operations" if t_ops > t_bytes else "bytes"
+        leaf = leaf_of[(kk, nn)]
+        x = torch.from_numpy(rng.standard_normal((mm, kk)).astype(
+            np.float32)).to(dev)
+        # the path's other two kernels at this shape, against their plain
+        # versions bit for bit: the activation encode and the pre-pass
+        check(same_bits(pg.encode_posit_f32(x, P16E1),
+                        pg.encode_posit_f32_plain(x, P16E1))
+              and all(p is None and q is None or same_bits(p, q)
+                      for p, q in zip(pg.decode_planes(a, b, P16E1),
+                                      pg.decode_planes_plain(a, b, P16E1))),
+              f"[serve] {shape}: the encode or pre-pass kernel differs "
+              "from its plain version")
+        xla = {**leaf, "qmeta": ("p16e1", "xla")}
+        y_p, y_x = qz.quant_matmul(x, leaf), qz.quant_matmul(x, xla)
+        qerr = rel_err(y_p, y_x)
+        check(qerr < 1e-3, f"[serve] quant_matmul {shape}: pallas vs xla "
+              f"{qerr:.3g}, the reference's bar 1e-3")
+        qm_ms, _ = host_ms(lambda: qz.quant_matmul(x, leaf), 10)
+        qx_ms, _ = host_ms(lambda: qz.quant_matmul(x, xla), 10)
+        row = dict(shape=list(shape), kernel_ms=kernel_ms,
+                   prepass_ms=prepass_ms, plain_ms=plain_ms,
+                   matmul_f32_ms=matmul_ms, bound_ms=bound_ms, bound_by=by,
+                   quant_matmul_pallas_host_ms=qm_ms,
+                   quant_matmul_xla_host_ms=qx_ms, pallas_vs_xla=qerr)
+        timings.append(row)
+        say(f"[serve] {shape} p16e1 bk=32: kernel {kernel_ms:.4f} ms "
+            f"(pre-pass {prepass_ms:.4f}; CUDA graph), bound "
+            f"{bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms, "
+            f"torch.matmul f32 on the decoded words {matmul_ms:.4f} ms; "
+            f"quant_matmul a call on the host clock: pallas {qm_ms:.4f} "
+            f"ms, xla {qx_ms:.4f} ms, pallas vs xla {qerr:.3e} [{smi}]")
+    busy = profile_decode_steps(engine, trace, cfg)
+    table = qp["embed"]["table"]
+    deq_ms = cuda_ms(lambda: qz.dequant_leaf(table), 5)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    wall = time.perf_counter() - t_phase
+    say(f"[serve] the tied table's dequantize ({cfg.vocab} x {cfg.d_model} "
+        f"p16e1 words -> f32, every step's unembed) {deq_ms:.4f} ms; peak "
+        f"device memory {peak / 2**30:.3f} GiB; phase wall {wall:.2f} s "
+        f"[{smi}]")
+    return dict(arch=cfg.name, n_params=n_params, param_bytes=pb,
+                kv_bytes=kb, setup_s=setup_s,
+                batched={k: v for k, v in rep_b.items() if k != "outputs"},
+                sequential={k: v for k, v in rep_s.items() if k != "outputs"},
+                decode_step_ms=step_ms, prefill_ms_per_token=prefill_ms,
+                decode_steps=len(clock_b.step_s),
+                prefill_tokens=clock_b.prefill_tokens,
+                counters=c["counters"], first_step_gemms=n_gemms,
+                max_abs_kernel_vs_plain=worst, shapes=timings,
+                table_dequant_ms=deq_ms, peak_bytes=peak, profile=busy,
+                wall_s=wall), counts
+
+
+def profile_decode_steps(engine, trace, cfg, steps=3):
+    """The device's busy share over ``steps`` decode steps at full width:
+    four of the trace's prompts cut to two tokens are admitted (a short
+    prefill), then ``torch.profiler`` traces the steps; busy = the sum of
+    the CUDA kernels' device time over the window's host-clock wall.
+    Prints the kernels that took the most device time."""
+    import dataclasses
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    eng = engine(SERVE_ENGINE["max_batch"])
+    for r in trace[:SERVE_ENGINE["max_batch"]]:
+        eng.submit(dataclasses.replace(r, prompt=r.prompt[:2],
+                                       max_new=steps + 2))
+    eng.step()                      # admits all four, decodes one token
+    torch.cuda.synchronize()
+    check(eng.n_inflight() == SERVE_ENGINE["max_batch"],
+          "[serve] profile: not every request in flight")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    device_s = sum(r[0] for r in rows) / 1e6
+    top = sorted(rows, reverse=True)[:6]
+    if device_s == 0.0:
+        say("[serve] profile: the trace holds no device time (not "
+            "measured)")
+        return dict(wall_s=wall, device_s=None, busy=None)
+    say(f"[serve] profile of {steps} decode steps at width "
+        f"{SERVE_ENGINE['max_batch']}: wall {wall * 1e3:.2f} ms, device "
+        f"busy {device_s * 1e3:.2f} ms ({100 * device_s / wall:.1f} %, "
+        f"idle {100 - 100 * device_s / wall:.1f} %); by device time: "
+        + "; ".join(f"{k[:48]} x{n} {t / 1e3:.2f} ms" for t, k, n in top))
+    return dict(wall_s=wall, device_s=device_s, busy=device_s / wall,
+                top=[dict(name=k, count=n, device_ms=t / 1e3)
+                     for t, k, n in top])
+
+
 def interleaved_ms(first, second, reps: int = 20):
     """Device times of two functions in turns (first, second, second,
     first; ``graph_ms`` each): (first's mean, second's mean, all four)."""
@@ -2363,8 +2788,12 @@ def main(argv=None) -> int:
         print("chip_smoke: torch sees no CUDA device; nothing was run",
               file=sys.stderr)
         return 2
-    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
-    check("jax" not in sys.modules and "repro" not in sys.modules,
+    # fails outside a checkout of the repo
+    import repro_torch.serving.study  # noqa: F401  (the whole serving path)
+    import repro_torch.lapack.error_eval  # noqa: F401
+    import repro_torch.dist  # noqa: F401
+    check(not any(m == "jax" or m.startswith(("jax.", "repro."))
+                  or m == "repro" for m in sys.modules),
           "the port pulled in JAX or the JAX package")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2410,11 +2839,13 @@ def main(argv=None) -> int:
     soak = run(phase_ft_soak, dev, smi)
     guarded = run(phase_guarded, dev, smi)
     dist_report, dist_counts = run(phase_dist, dev, smi, main_words)
+    models = run(phase_models, dev, smi)
+    serve, serve_counts = run(phase_serve, dev, smi)
     rows, grid, extra = run(phase_timings, dev, worst, smi)
 
     by_path = dict(main=counts, refine=refine_counts, qr=qr_counts,
                    ensemble=ens_counts, golden=golden_counts, ft=ft_counts,
-                   dist=dist_counts)
+                   dist=dist_counts, serve=serve_counts)
     for path, names in ON_PATH.items():
         for name in names:
             check(by_path[path][name] > 0,
@@ -2448,7 +2879,7 @@ def main(argv=None) -> int:
                  qr=qr_report, lstsq=lstsq, ensemble=ens_report,
                  batched=batched, obs=obs_report, golden=golden,
                  ft=ft_report, ft_soak=soak, guarded=guarded,
-                 dist=dist_report,
+                 dist=dist_report, models=models, serve=serve,
                  kernels=kernels, timings=list(rows.values()),
                  gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))

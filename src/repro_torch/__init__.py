@@ -25,8 +25,22 @@ seeded fault injection, the protected GEMMs and the ``_ft``
 factorizations), ``dist`` (the block-cyclic distributed path over
 ``torch.distributed``: a P x Q grid of ranks, ``pdgemm``, ``p_rpotrf`` /
 ``p_rgetrf``, the distributed refinement and the protected drivers),
-``checkpoint`` (the reference's on-disk form) and ``interop``.  Not yet
-ported: models, serving and training (ROADMAP.md, queue A).
+``checkpoint`` (the reference's on-disk form), the LM serving stack:
+``core.policy`` (forward), ``configs`` (the ten architectures, shape
+cells, smoke and tiny configs), ``models`` (every family's prefill and
+decode step, one dict per layer), ``serving`` (``quantize`` with the
+GEMM kernel behind ``quant_matmul(backend="pallas")``, the paged posit
+KV cache, the continuous-batching ``Engine``, ``traffic``, ``study``),
+and ``interop`` (words, pivots, quires, the reference's model params).
+
+Not yet ported (ROADMAP.md, queue A): training and launch (A13:
+``forward_train`` and the chunked cross-entropy, the attention and
+grouped-GEMM VJPs, the policy's straight-through gradient,
+``optim``, ``data``, ``launch/{train,steps,mesh,sharding,context,
+dryrun,collectives}``, ``moe_apply_ep`` and the vocab-parallel embedding)
+and the port's benches (A14).  Never to be ported: ``launch/compat.py``
+and ``launch/hlo_analysis.py``, which work on jax internals and XLA HLO
+text.
 
 Functions that take tensors run where the tensors live; entry points that
 build tensors take ``device="cuda"`` by default and raise when no GPU is

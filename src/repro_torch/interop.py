@@ -1,5 +1,5 @@
-"""Move posit words, pivots and quire states between numpy and the port's
-tensors.
+"""Move posit words, pivots, quire states and model params between numpy
+and the port's tensors.
 
 The reference keeps posit matrices as int32 word arrays, LU pivots as
 0-based int32 vectors and a quire as int64 limbs (..., L) with a bool NaR
@@ -7,6 +7,11 @@ flag (...); the port keeps the same as tensors.  These helpers convert in
 both directions and check dtype and shape on the way, so the same words
 (or the same unrounded quire) can be handed to both packages (the tests
 do) or a result of one can be loaded into the other.
+
+``params_from_reference`` loads the reference's model param tree (its
+leaves turned into numpy arrays, e.g. ``jax.tree.map(np.asarray, p)``)
+into the port's layout: one dict per layer where the reference stacks
+each period slot along a leading axis.
 """
 from __future__ import annotations
 
@@ -14,7 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch.models.common import ArchConfig, Axes
+from repro_torch.models.lm import period_of
 from repro_torch.quire import Quire
+from repro_torch.serving.quantize import QMeta
 
 
 def _check(arr: np.ndarray, what: str, ndim: int | None, shape) -> None:
@@ -87,3 +95,46 @@ def quire_to_numpy(q: Quire) -> tuple[np.ndarray, np.ndarray]:
         raise TypeError(f"a quire holds int64 limbs and bool flags, got "
                         f"{q.limbs.dtype} and {q.nar.dtype}")
     return q.limbs.detach().cpu().numpy(), q.nar.detach().cpu().numpy()
+
+
+_NAME_KEYS = {"axes": Axes, "qmeta": QMeta}     # names: no tensor data
+
+
+def _tree_to_torch(node, dev, index=None):
+    """A reference param subtree -> the port's, taking entry ``index`` of
+    the leading (stacked) axis of every array when given.  ``axes`` and
+    ``qmeta`` stay names."""
+    if isinstance(node, dict):
+        return {k: _NAME_KEYS[k](v) if k in _NAME_KEYS
+                else _tree_to_torch(v, dev, index) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree_to_torch(v, dev, index) for v in node]
+    arr = np.asarray(node)
+    if index is not None:
+        arr = arr[index]
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)
+
+
+def params_from_reference(tree, cfg: ArchConfig, device="cuda") -> dict:
+    """The reference's model params (numpy leaves, f32 or quantized) ->
+    the port's tree on ``device``.  Layer ``i`` is the reference's slot
+    ``i % period`` at stack index ``i // period``; the encoder's layers
+    are unstacked likewise; the tied embedding, the untied ``unembed``
+    and the hybrid's single shared block carry over as they are."""
+    dev = _device.resolve(device)
+    per = period_of(cfg)
+    if len(tree["layers"]) != per:
+        raise ValueError(f"expected {per} stacked slots, got "
+                         f"{len(tree['layers'])}")
+    out = {k: _tree_to_torch(v, dev) for k, v in tree.items()
+           if k not in ("layers", "enc")}
+    out["layers"] = [_tree_to_torch(tree["layers"][i % per], dev, i // per)
+                     for i in range(cfg.n_layers)]
+    if "enc" in tree:
+        enc = tree["enc"]
+        out["enc"] = {
+            "pos": _tree_to_torch(enc["pos"], dev),
+            "layers": [_tree_to_torch(enc["layers"], dev, i)
+                       for i in range(cfg.enc_layers)],
+            "final_norm": _tree_to_torch(enc["final_norm"], dev)}
+    return out

@@ -1,0 +1,8 @@
+"""Model zoo (counterpart of ``repro.models``, inference only): the
+blocks and their assembly for every architecture family."""
+from repro_torch.models.common import ArchConfig
+from repro_torch.models.lm import (forward_prefill, init_cache, init_params,
+                                   serve_step)
+
+__all__ = ["ArchConfig", "forward_prefill", "init_cache", "init_params",
+           "serve_step"]

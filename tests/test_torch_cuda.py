@@ -20,6 +20,8 @@ so must the checksums, the observability records of faithful runs and the
 guarded solve ladder.  A collector changes no word and no kernel launch.
 Four ranks on the one card (gloo, host-staged collectives) factor a 2x2
 block-cyclic LU whose words and pivots must equal the single-device LU's.
+The serving path's quantized matmul runs on the kernel within the same
+bound, and the serving engine's batched tokens equal its sequential ones.
 """
 import numpy as np
 import pytest
@@ -467,3 +469,69 @@ def test_cuda_host_staged_2x2_rgetrf(cuda_device, tmp_path):
         assert np.array_equal(rank["ipiv"], ipiv.cpu().numpy())
         assert rank["launches"]["posit_gemm_f32"] == n // nb - 1
         assert rank["launches"]["decode_planes"] == n // nb - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["p16e1", "p8e2"])
+def test_cuda_quant_matmul_kernel_matches_plain(cuda_device, fmt):
+    """``quant_matmul(backend="pallas")`` on the card: one encode, one
+    pre-pass and one GEMM launch, the quantized words the CPU's, and the
+    output, like the plain CPU run's, within sqrt(K)*8e-8 of the exact
+    product of the activation and weight words."""
+    from repro_torch.serving import QuantConfig
+    from repro_torch.serving import quantize as TQ
+    f = TF.FORMATS[fmt]
+    rng = np.random.default_rng(40)
+    w = torch.from_numpy((rng.standard_normal((896, 128)) * 0.05)
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((4, 896)).astype(np.float32))
+    qc = QuantConfig(fmt=fmt, backend="pallas")
+    leaf = TQ.quantize_leaf({"w": w, "axes": (None, None)}, qc)
+    card = TQ.quantize_leaf({"w": w.to(cuda_device), "axes": (None, None)},
+                            qc)
+    assert torch.equal(card["qw"].cpu(), leaf["qw"])
+    assert torch.equal(card["sexp"].cpu(), leaf["sexp"])
+    before = TG.launch_counts()
+    got = TQ.quant_matmul(x.to(cuda_device), card)
+    torch.cuda.synchronize()
+    after = TG.launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"posit_gemm_f32": 1,
+                                          "decode_planes": 1,
+                                          "encode_posit_f32": 1}
+    av = TP.to_float64(TP.from_float32_bits(x, f), f)
+    bv = TQ.dequant_leaf(leaf).double()
+    bound = np.sqrt(896) * 8e-8
+    assert ti.gemm_rel_err(got.cpu(), av, bv) < bound
+    assert ti.gemm_rel_err(TQ.quant_matmul(x, leaf), av, bv) < bound
+
+
+@pytest.mark.cuda
+def test_cuda_engine_batched_equals_sequential(cuda_device):
+    """A tiny qwen2 with p16e1 weights on the kernel and a p16e1 paged KV
+    pool: the engine's batched tokens equal its sequential ones on the
+    card, and every linear ran on the kernel."""
+    import dataclasses
+    from repro_torch.configs import get_tiny_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (Engine, QuantConfig, Request,
+                                     quantize_params)
+    cfg = get_tiny_config("qwen2-0.5b", policy="f32")
+    params = quantize_params(init_params(0, cfg, cuda_device),
+                             QuantConfig(fmt="p16e1", backend="pallas"))
+    rng = np.random.default_rng(41)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, (4 + 3 * i,))
+                    .astype(np.int32), max_new=5 + i) for i in range(4)]
+
+    def run(inflight):
+        eng = Engine(params, cfg, max_batch=3, page_size=8, max_seq=64,
+                     kv_fmt="p16e1", max_inflight=inflight)
+        return eng.run([dataclasses.replace(r) for r in reqs])
+    TG.reset_launch_counts()
+    batched, seq = run(3), run(1)
+    assert set(batched) == set(seq) == {0, 1, 2, 3}
+    for rid in batched:
+        assert np.array_equal(batched[rid], seq[rid]), rid
+    counts = TG.launch_counts()
+    assert counts["posit_gemm_f32"] == counts["decode_planes"] > 0
+    assert counts["posit_gemm_f32"] % (7 * cfg.n_layers) == 0
