@@ -37,9 +37,11 @@ plain version; ``[dist nccl]``: one rank on NCCL), drives the LM
 serving path (``[models]``: each model family's tiny config on the card
 against the CPU; ``[serve]``: qwen2-0.5b at its published widths with
 p16e1 weights, every linear of every decode step and prefill token on the
-GEMM kernel, a p16e1 paged KV cache, a seeded trace replayed batched and
-sequentially with equal tokens, the first decode step's kernel GEMMs held
-to the plain version), and times the
+skinny GEMM kernel, a p16e1 paged KV cache, a seeded trace replayed
+batched and sequentially with equal tokens, the first decode step's
+GEMMs equal to the tiled kernel's chain bit for bit and held to the plain
+version, the skinny kernel against the tiled chain at several rows and
+timed against it), and times the
 kernels: the tiled kernel and the simple one interleaved,
 the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks, the whole
 ``rgemm`` trailing-update call and its ``quire_exact`` form, and the
@@ -48,8 +50,11 @@ Every phase raises on a failed check, so the script exits non-zero unless
 all of them pass.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it carries
 the card's name and power limit as ``nvidia-smi`` reports them, and the
-line before that the per-kernel JSON (``launches``: on the §5.1 main
-path; ``launches_by_path``: on it and on the refinement, QR, ensemble,
+line before that the per-kernel JSON (``launches``: on the kernel's own
+path, the first of ``ON_PATH`` that launches it (``launches_path``; the
+§5.1 main path for the GEMM and the pre-pass, QR for the fused GEMM,
+serving for the skinny GEMM and the encode kernel);
+``launches_by_path``: on the §5.1 main path and on the refinement, QR, ensemble,
 golden-zone, protected (``ft``), distributed (``dist``, every rank's)
 and serving (``serve``: both replays of ``[serve]``) paths, each counted
 from zero around its own run; ``on_main_path``:
@@ -196,33 +201,46 @@ SERVE_ARCH = "qwen2-0.5b"
 SERVE_ENGINE = dict(max_batch=4, page_size=16, max_seq=128)
 SERVE_TRAFFIC = dict(n_requests=6, mean_plen=24, mean_new=12,
                      arrival_rate=0.5, seed=0)
+# Rows at which [serve] holds the skinny kernel to the tiled chain bit for
+# bit on the layer-0 leaves (and at SKINNY_M_MAX), and at which it times
+# the two in turns: the measurements the dispatch threshold is chosen from.
+SKINNY_IDENTITY_MS = (1, 2, 3, 4, 16)
+SKINNY_SWEEP_MS = (1, 4, 16, 64)
+SKINNY_ROW_SHAPE = (4, 4864, 896)   # the kernels line's row: the slowest
 # The tiled kernel's instantiations the studies run (split3; the last
 # template flag is BATCHED): p32e2 with one K chunk, f32 out and fused
 # encode; p32e2 fused over several chunks (QR's V^T C, K = m - j > 128);
 # p16e1 f32 (the mixed study) and fused (rgels_mp's QR); the batched p32e2
 # f32 form (the ensemble's updates); p16e1 f32 over several chunks (the
-# serve path's quantized linears, bk=32).  ptxas must report them, and no
-# spills in any.
+# quantized linears above the skinny kernel's rows, bk=32); and the skinny
+# kernel's p16e1 forms at M = 1 (prefill, sequential decode), 4 (decode at
+# width 4) and 16 ([models]' prefill of 2 x 8 tokens).  ptxas must report
+# them, and no spills in any.
 MAIN_PATH_KERNELS = ("posit_gemm_kernel<32,2,0,1,0,0>",
                      "posit_gemm_kernel<32,2,0,1,1,0>",
                      "posit_gemm_kernel<32,2,0,0,1,0>",
                      "posit_gemm_kernel<16,1,0,1,0,0>",
                      "posit_gemm_kernel<16,1,0,1,1,0>",
                      "posit_gemm_kernel<32,2,0,1,0,1>",
-                     "posit_gemm_kernel<16,1,0,0,0,0>")
+                     "posit_gemm_kernel<16,1,0,0,0,0>",
+                     "posit_gemm_skinny_kernel<16,1,1>",
+                     "posit_gemm_skinny_kernel<16,1,4>",
+                     "posit_gemm_skinny_kernel<16,1,16>")
 SOURCES = {"posit_gemm_f32": "posit_gemm.cu", "posit_gemm": "posit_gemm.cu",
            "decode_planes": "posit_gemm.cu",
            "decode_split_f32": "posit_codec.cu",
            "encode_posit_f32": "posit_codec.cu",
            "posit_gemm_f32_simple": "posit_gemm_simple.cu",
-           "posit_gemm_simple": "posit_gemm_simple.cu"}
+           "posit_gemm_simple": "posit_gemm_simple.cu",
+           "quant_gemm_f32": "posit_gemm_skinny.cu"}
 REPLACES = {"posit_gemm_f32": "src/repro/kernels/posit_gemm.py:271",
             "posit_gemm": "src/repro/kernels/posit_gemm.py:271",
             "decode_planes": "src/repro/kernels/posit_gemm.py:211",
             "decode_split_f32": "src/repro/kernels/posit_gemm.py:88",
             "encode_posit_f32": "src/repro/kernels/posit_gemm.py:127",
             "posit_gemm_f32_simple": "src/repro/kernels/posit_gemm.py:271",
-            "posit_gemm_simple": "src/repro/kernels/posit_gemm.py:271"}
+            "posit_gemm_simple": "src/repro/kernels/posit_gemm.py:271",
+            "quant_gemm_f32": "src/repro/kernels/posit_gemm.py:271"}
 # Kernels each path must launch (counted from zero around it): the §5.1
 # main path and the paths of later slices.
 ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
@@ -232,7 +250,7 @@ ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
            "golden": ("posit_gemm_f32", "decode_planes"),
            "ft": ("posit_gemm_f32", "posit_gemm", "decode_planes"),
            "dist": ("posit_gemm_f32", "decode_planes"),
-           "serve": ("posit_gemm_f32", "decode_planes", "encode_posit_f32")}
+           "serve": ("quant_gemm_f32", "encode_posit_f32")}
 
 
 def say(*parts):
@@ -316,8 +334,9 @@ def same_bits(x, y) -> bool:
 
 def phase_build():
     """Build the kernels; print ptxas's registers, stack and spills per
-    kernel; the decode pre-pass and the tiled GEMM must not spill in any
-    instantiation, and the main path's must be among them."""
+    kernel; the decode pre-pass, the tiled GEMM and the skinny GEMM must
+    not spill in any instantiation, and the main path's must be among
+    them."""
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     _build.lib()
@@ -330,7 +349,8 @@ def phase_build():
     for name in MAIN_PATH_KERNELS:
         check(name in report, f"ptxas reported nothing for {name}")
     for name, r in report.items():
-        if name.startswith(("posit_gemm_kernel<", "decode_planes_kernel<")):
+        if name.startswith(("posit_gemm_kernel<", "decode_planes_kernel<",
+                            "posit_gemm_skinny_kernel<")):
             check(r["spill_stores"] == r["spill_loads"] == r["stack"] == 0,
                   f"{name} spills: {r}")
     return secs, report
@@ -598,9 +618,13 @@ class StageTimer:
 
 class GemmRecorder:
     """Keeps a copy of the operands and the output of every GEMM wrapper
-    call that ``rgemm`` makes (``posit_gemm_f32`` and the fused
-    ``posit_gemm``), or of the first ``limit`` calls, so that a path's own
-    GEMMs can be held to the plain version afterwards."""
+    call made through ``kernels.ops`` (``rgemm``'s ``posit_gemm_f32`` and
+    fused ``posit_gemm``; ``quant_matmul``'s ``quant_gemm_f32``, whose
+    scale exponents and format go into the keywords), or of the first
+    ``limit`` calls, so that a path's own GEMMs can be held to the plain
+    version afterwards."""
+
+    NAMES = ("posit_gemm_f32", "posit_gemm", "quant_gemm_f32")
 
     def __init__(self, limit=None):
         self.calls = []             # (name, a, b, keywords, output)
@@ -609,12 +633,13 @@ class GemmRecorder:
     def __enter__(self):
         from repro_torch.kernels import ops
         self.ops = ops
-        self.saved = {name: getattr(ops, name)
-                      for name in ("posit_gemm_f32", "posit_gemm")}
+        self.saved = {name: getattr(ops, name) for name in self.NAMES}
         for name, fn in self.saved.items():
-            def recorded(a, b, _fn=fn, _name=name, **kw):
-                out = _fn(a, b, **kw)
+            def recorded(a, b, *rest, _fn=fn, _name=name, **kw):
+                out = _fn(a, b, *rest, **kw)
                 if self.limit is None or len(self.calls) < self.limit:
+                    if rest:                  # quant_gemm_f32(x, w, sexp, fmt)
+                        kw = dict(kw, sexp=rest[0].clone(), fmt=rest[1])
                     self.calls.append((_name, a.clone(), b.clone(), kw,
                                        out.clone()))
                 return out
@@ -664,6 +689,51 @@ def check_path_gemms(path, calls):
         else:
             check(same_bits(out, got), f"{path} posit_gemm_f32 "
                   f"{tuple(a.shape)} @ {tuple(b.shape)}: not deterministic")
+    return len(calls), worst
+
+
+def tiled_quant_chain(x, words, sexp, fmt, bk=32):
+    """A quantized linear as ``quant_matmul`` runs it above the skinny
+    kernel's rows (and as it ran every linear before it): the encode
+    kernel, the words widened to int32, the pre-pass and the tiled
+    kernel, then the channel scales."""
+    import torch
+    from repro_torch.kernels import posit_gemm as pg
+    y = pg.posit_gemm_f32(pg.encode_posit_f32(x, fmt), words.to(torch.int32),
+                          bk=bk, mode="split3", fmt=fmt)
+    return y * pg.channel_scales(sexp)
+
+
+def check_quant_gemms(path, calls):
+    """Each recorded ``quant_gemm_f32`` call of a path: its output equal bit
+    for bit to the tiled chain on the same operands and to a second
+    launch, and, like the plain version's, within sqrt(K)*8e-8 of the
+    exact product of the activation words and the scaled weights.  Returns
+    the number of calls and the largest max|kernel-plain| over them."""
+    import numpy as np
+    from repro_torch.core import posit
+    from repro_torch.kernels import posit_gemm as pg
+    import torch_inputs as ti
+    calls = [c for c in calls if c[0] == "quant_gemm_f32"]
+    check(calls, f"{path}: no quant_gemm_f32 call was recorded")
+    worst = 0.0
+    for _, x, w, kw, out in calls:
+        fmt, sexp, bk = kw["fmt"], kw["sexp"], kw["bk"]
+        what = f"{path} quant_gemm_f32 {fmt.name} {tuple(x.shape)} @ " \
+               f"{tuple(w.shape)}"
+        check(same_bits(out, pg.quant_gemm_f32(x, w, sexp, fmt, bk=bk)),
+              f"{what}: not deterministic")
+        check(same_bits(out, tiled_quant_chain(x, w, sexp, fmt, bk)),
+              f"{what}: != the tiled kernel's chain")
+        plain = pg.quant_gemm_f32_plain(x, w, sexp, fmt, bk=bk)
+        av = posit.to_float64(pg.encode_posit_f32(x, fmt), fmt)
+        bv = (posit.to_float64(w.to(x.device).int(), fmt)
+              * pg.channel_scales(sexp).double())
+        bound = np.sqrt(x.shape[1]) * 8e-8
+        e_k, e_p = ti.gemm_rel_err(out, av, bv), ti.gemm_rel_err(plain, av, bv)
+        check(e_k < bound and e_p < bound, f"{what}: kernel {e_k:.3g} plain "
+              f"{e_p:.3g} >= bound {bound:.3g}")
+        worst = max(worst, float((out - plain).abs().max()))
     return len(calls), worst
 
 
@@ -2185,8 +2255,8 @@ def phase_models(dev, smi):
     logits, then the decode path over the prompt and three steps more
     (f32 caches; the CPU's tokens fed to both), every logit vector within
     MODEL_RTOL.  A p16e1-quantized tiny qwen2 with the kernel backend:
-    one GEMM launch per linear, logits within MODEL_QUANT_RTOL of its
-    plain CPU run."""
+    one skinny GEMM launch per linear (M = 16), logits within
+    MODEL_QUANT_RTOL of its plain CPU run."""
     import numpy as np
     import torch
     from repro_torch.configs import get_tiny_config
@@ -2247,14 +2317,14 @@ def phase_models(dev, smi):
     launches = {k: after[k] - before[k] for k in after if after[k] - before[k]}
     err = rel_err(got, forward_prefill(q_cpu, {"tokens": toks}, cfg))
     want = 7 * cfg.n_layers
-    check(launches == {"posit_gemm_f32": want, "decode_planes": want,
-                       "encode_posit_f32": want},
+    check(launches == {"quant_gemm_f32": want},
           f"[models] quantized qwen2: launches {launches}, expected {want} "
-          "GEMM, pre-pass and activation-encode launches (one per linear)")
+          "skinny GEMM launches (one per linear) and no encode, pre-pass or "
+          "tiled GEMM launch")
     check(err < MODEL_QUANT_RTOL, f"[models] quantized qwen2 on the kernel: "
           f"logits {err:.3g} from the plain CPU run, limit {MODEL_QUANT_RTOL}")
-    say(f"[models] qwen2 tiny, p16e1 weights, kernel backend: {want} GEMM "
-        f"launches, logits {err:.3e} from the plain split3 CPU run "
+    say(f"[models] qwen2 tiny, p16e1 weights, kernel backend: {want} skinny "
+        f"GEMM launches, logits {err:.3e} from the plain split3 CPU run "
         f"(limit {MODEL_QUANT_RTOL}) [{smi}]")
     report["quantized_qwen2"] = dict(rel_err=err, launches=launches)
     return report
@@ -2313,14 +2383,19 @@ def phase_serve(dev, smi):
     quantized to p16e1 with the kernel backend, the paged p16e1 KV pool,
     a seeded trace replayed batched (4 in flight) and sequentially (1):
     the tokens equal bit for bit; every linear of every step and prefill
-    token on the GEMM kernel (launches counted from zero around the two
-    replays); the first sequential decode step's 168 kernel GEMMs held to
-    the plain version, and at each of their four shapes the encode and
-    pre-pass kernels to theirs; quant_matmul's kernel backend within 1e-3
-    of the decoded-matmul one; 2.0x weight and KV storage; the serve.*
-    counters equal the engine's counts.  Times the replay, the decode
-    step, the prefill per token, the kernel and torch.matmul at each
-    shape, and profiles three decode steps."""
+    token on the skinny GEMM kernel, with no tiled, pre-pass or separate
+    activation-encode launch (launches counted from zero around the two
+    replays); the first sequential decode step's 168 skinny GEMMs equal to
+    the tiled chain bit for bit and held to the plain version; at each of
+    their four shapes, on the layer-0 leaves, the skinny kernel equal to
+    the tiled chain at M in SKINNY_IDENTITY_MS and SKINNY_M_MAX, and the
+    encode and pre-pass kernels to their plain versions; quant_matmul's
+    kernel backend within 1e-3 of the decoded-matmul one; 2.0x weight and
+    KV storage; the serve.* counters equal the engine's counts.  Times
+    the replay, the decode step, the prefill per token, at each shape the
+    skinny kernel and the tiled chain in turns (also at SKINNY_SWEEP_MS
+    rows), the pre-pass + tiled GEMM, torch.matmul and quant_matmul, and
+    profiles three decode steps."""
     import numpy as np
     import torch
     from repro_torch import obs
@@ -2378,21 +2453,23 @@ def phase_serve(dev, smi):
               f"sequential {rep_s['outputs'][rid].tolist()}")
     check(len(rep_b["outputs"]) == len(trace), "[serve] not every request "
           "finished")
-    # every linear of every decode step and prefill token: one GEMM, one
-    # pre-pass, one activation encode; every decode step and admission
-    # also encodes its K and V rows once per attention layer
+    # every linear of every decode step and prefill token: one skinny GEMM
+    # launch; every decode step and admission also encodes its K and V rows
+    # once per attention layer
     linears = 7 * cfg.n_layers
     calls = sum(len(c.step_s) + c.prefill_tokens for c in (clock_b, clock_s))
     kv_writes = 2 * len(kv_layer_indices(cfg)) * sum(
         len(c.step_s) + len(c.prefill_s) for c in (clock_b, clock_s))
-    check(counts["posit_gemm_f32"] == counts["decode_planes"]
-          == linears * calls
-          and counts["encode_posit_f32"] == linears * calls + kv_writes
-          and counts["posit_gemm"] == counts["posit_gemm_f32_simple"]
-          == counts["posit_gemm_simple"] == counts["decode_split_f32"] == 0,
-          f"[serve] launches {counts}, expected {linears} GEMM, pre-pass "
-          f"and encode launches for each of {calls} decode steps and "
-          f"prefill tokens, and {kv_writes} K/V encodes")
+    check(counts["quant_gemm_f32"] == linears * calls
+          and counts["encode_posit_f32"] == kv_writes
+          and all(counts[k] == 0 for k in (
+              "posit_gemm_f32", "decode_planes", "posit_gemm",
+              "posit_gemm_f32_simple", "posit_gemm_simple",
+              "decode_split_f32")),
+          f"[serve] launches {counts}, expected {linears} skinny GEMM "
+          f"launches for each of {calls} decode steps and prefill tokens, "
+          f"{kv_writes} K/V encodes, and no tiled GEMM, pre-pass or "
+          "activation-encode launch")
     c = m.to_dict()
     check(c["counters"].get("serve.steps") == rep_b["steps"]
           == eng_b.step_count and c["counters"].get("serve.tokens")
@@ -2403,7 +2480,7 @@ def phase_serve(dev, smi):
     check(0.0 <= c["gauges"]["serve.batch_occupancy"] <= 1.0
           and c["gauges"]["serve.kv_pages_in_use"] < eng_b.spec.n_pages,
           f"[serve] gauges {c['gauges']}")
-    n_gemms, worst = check_path_gemms("serve", clock_s.first_gemms)
+    n_gemms, worst = check_quant_gemms("serve", clock_s.first_gemms)
     shapes = sorted({(a.shape[0], a.shape[1], b.shape[1])
                      for _, a, b, _, _ in clock_s.first_gemms})
     m_rows = SERVE_ENGINE["max_batch"]
@@ -2430,46 +2507,75 @@ def phase_serve(dev, smi):
         f"{json.dumps(counts)} ({linears} x {calls} GEMMs, {kv_writes} "
         f"K/V encodes); counters "
         f"{json.dumps(c['counters'])}; the first decode step's {n_gemms} "
-        f"kernel GEMMs within sqrt(K)*8e-8 of the exact product, "
+        f"skinny GEMMs equal to the tiled chain bit for bit and within "
+        f"sqrt(K)*8e-8 of the exact product, "
         f"max|kernel-plain| {worst:.3e}")
 
-    # Per shape: the kernel (pre-pass + GEMM, CUDA graph), its pre-pass,
-    # the plain version, torch.matmul f32 on the decoded words (the xla
-    # backend's product), and quant_matmul's two backends on the real
-    # layer-0 leaves (host clock: the activation encode included).
+    # Per shape, on the real layer-0 leaves: the skinny kernel against the
+    # tiled chain (encode, widen, pre-pass, tiled kernel, scale) bit for bit
+    # at several M; the two in turns (CUDA graphs of 20) at the path's M and
+    # at SKINNY_SWEEP_MS; the pre-pass + tiled GEMM alone (the serve path's
+    # kernel time before the skinny kernel) and its pre-pass; the plain
+    # version; torch.matmul f32 on the decoded words (the xla backend's
+    # product); quant_matmul's two backends on the host clock.
     leaf_of = {(cfg.d_model, cfg.d_q): qp["layers"][0]["attn"]["wq"]["w"],
                (cfg.d_model, cfg.d_kv): qp["layers"][0]["attn"]["wk"]["w"],
                (cfg.d_model, cfg.d_ff): qp["layers"][0]["ffn"]["w_up"]["w"],
                (cfg.d_ff, cfg.d_model):
                    qp["layers"][0]["ffn"]["w_down"]["w"]}
     rng = np.random.default_rng(5)
-    timings = []
+    timings, sweep, kernel_row = [], [], None
     for shape in shapes:
         mm, kk, nn = shape
-        a, b = next((a, b) for _, a, b, _, _ in clock_s.first_gemms
-                    if (a.shape[0], a.shape[1], b.shape[1]) == shape)
-        kernel_ms = graph_ms(lambda: pg.posit_gemm_f32(a, b, bk=32,
-                                                       fmt=P16E1), 20)
-        prepass_ms = graph_ms(lambda: pg.decode_planes(a, b, P16E1), 20)
-        plain_ms = cuda_ms(lambda: pg.posit_gemm_f32_plain(
-            a, b, bk=32, fmt=P16E1), 3)
-        af = posit.to_float32_bits(a, P16E1)
-        bf = posit.to_float32_bits(b, P16E1)
+        leaf = leaf_of[(kk, nn)]
+        w, sx = leaf["qw"], leaf["sexp"]
+
+        def skinny(x_, w=w, sx=sx):
+            return pg.quant_gemm_f32(x_, w, sx, P16E1)
+
+        def chain(x_, w=w, sx=sx):
+            return tiled_quant_chain(x_, w, sx, P16E1)
+
+        def act(rows, kk=kk):
+            return torch.from_numpy(rng.standard_normal((rows, kk)).astype(
+                np.float32)).to(dev)
+        for rows in sorted({*SKINNY_IDENTITY_MS, pg.SKINNY_M_MAX}):
+            xr = act(rows)
+            check(same_bits(skinny(xr), chain(xr)), f"[serve] {shape}: the "
+                  f"skinny kernel != the tiled chain at M={rows}")
+        x = act(mm)
+        chain_ms, skinny_ms, raw = interleaved_ms(lambda: chain(x),
+                                                  lambda: skinny(x))
+        for rows in SKINNY_SWEEP_MS:
+            xr = act(rows)
+            c_ms, s_ms, _ = interleaved_ms(lambda: chain(xr),
+                                           lambda: skinny(xr))
+            sweep.append(dict(m=rows, k=kk, n=nn, skinny_ms=s_ms,
+                              chain_ms=c_ms))
+        xw, w32 = pg.encode_posit_f32(x, P16E1), w.to(torch.int32)
+        tiled_ms = graph_ms(lambda: pg.posit_gemm_f32(xw, w32, bk=32,
+                                                      fmt=P16E1), 20)
+        prepass_ms = graph_ms(lambda: pg.decode_planes(xw, w32, P16E1), 20)
+        plain_ms = cuda_ms(lambda: pg.quant_gemm_f32_plain(x, w, sx, P16E1),
+                           3)
+        err = float((skinny(x) - pg.quant_gemm_f32_plain(x, w, sx, P16E1))
+                    .abs().max())
+        af = posit.to_float32_bits(xw, P16E1)
+        bf = posit.to_float32_bits(w32, P16E1)
         matmul_ms = cuda_ms(lambda: torch.matmul(af, bf), 20)
-        flops, nbytes = 2.0 * mm * kk * nn, 4.0 * (mm * kk + kk * nn + mm * nn)
+        # from the stored words: int16 words, f32 x and y, int8 exponents
+        flops = 2.0 * mm * kk * nn
+        nbytes = 2.0 * kk * nn + 4.0 * (mm * kk + mm * nn) + nn
         t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
         bound_ms = max(t_ops, t_bytes) * 1e3
         by = "operations" if t_ops > t_bytes else "bytes"
-        leaf = leaf_of[(kk, nn)]
-        x = torch.from_numpy(rng.standard_normal((mm, kk)).astype(
-            np.float32)).to(dev)
         # the path's other two kernels at this shape, against their plain
         # versions bit for bit: the activation encode and the pre-pass
-        check(same_bits(pg.encode_posit_f32(x, P16E1),
-                        pg.encode_posit_f32_plain(x, P16E1))
+        check(same_bits(xw, pg.encode_posit_f32_plain(x, P16E1))
               and all(p is None and q is None or same_bits(p, q)
-                      for p, q in zip(pg.decode_planes(a, b, P16E1),
-                                      pg.decode_planes_plain(a, b, P16E1))),
+                      for p, q in zip(pg.decode_planes(xw, w32, P16E1),
+                                      pg.decode_planes_plain(xw, w32,
+                                                             P16E1))),
               f"[serve] {shape}: the encode or pre-pass kernel differs "
               "from its plain version")
         xla = {**leaf, "qmeta": ("p16e1", "xla")}
@@ -2479,18 +2585,36 @@ def phase_serve(dev, smi):
               f"{qerr:.3g}, the reference's bar 1e-3")
         qm_ms, _ = host_ms(lambda: qz.quant_matmul(x, leaf), 10)
         qx_ms, _ = host_ms(lambda: qz.quant_matmul(x, xla), 10)
-        row = dict(shape=list(shape), kernel_ms=kernel_ms,
+        row = dict(shape=list(shape), skinny_ms=skinny_ms, chain_ms=chain_ms,
+                   interleaved_ms=raw, tiled_ms=tiled_ms,
                    prepass_ms=prepass_ms, plain_ms=plain_ms,
                    matmul_f32_ms=matmul_ms, bound_ms=bound_ms, bound_by=by,
-                   quant_matmul_pallas_host_ms=qm_ms,
+                   max_abs_err=err, quant_matmul_pallas_host_ms=qm_ms,
                    quant_matmul_xla_host_ms=qx_ms, pallas_vs_xla=qerr)
         timings.append(row)
-        say(f"[serve] {shape} p16e1 bk=32: kernel {kernel_ms:.4f} ms "
-            f"(pre-pass {prepass_ms:.4f}; CUDA graph), bound "
-            f"{bound_ms:.4f} ms ({by}), plain {plain_ms:.4f} ms, "
-            f"torch.matmul f32 on the decoded words {matmul_ms:.4f} ms; "
-            f"quant_matmul a call on the host clock: pallas {qm_ms:.4f} "
-            f"ms, xla {qx_ms:.4f} ms, pallas vs xla {qerr:.3e} [{smi}]")
+        if tuple(shape) == SKINNY_ROW_SHAPE:
+            kernel_row = dict(name="quant_gemm_f32", ms=skinny_ms,
+                              plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by=by, library_ms=matmul_ms,
+                              max_abs_err=err, shape=list(shape))
+        say(f"[serve] {shape} p16e1 bk=32: skinny kernel {skinny_ms:.4f} ms,"
+            f" tiled chain (encode + widen + pre-pass + GEMM + scale) "
+            f"{chain_ms:.4f} ms (chain, skinny, skinny, chain: "
+            + ", ".join(f"{t:.4f}" for t in raw)
+            + f"; CUDA graphs), {chain_ms / skinny_ms:.2f}x; pre-pass + "
+            f"tiled GEMM {tiled_ms:.4f} ms (pre-pass {prepass_ms:.4f}); bound "
+            f"{bound_ms:.5f} ms ({by}, from the int16 words), skinny at "
+            f"{100 * bound_ms / skinny_ms:.1f} % of it; plain {plain_ms:.4f} "
+            f"ms, max|skinny-plain| {err:.3e}; torch.matmul f32 on the "
+            f"decoded words {matmul_ms:.4f} ms ({matmul_ms / skinny_ms:.2f}x "
+            f"the skinny kernel); quant_matmul a call on the host clock: "
+            f"pallas {qm_ms:.4f} ms, xla {qx_ms:.4f} ms, pallas vs xla "
+            f"{qerr:.3e} [{smi}]")
+    check(kernel_row is not None, f"[serve] no GEMM at {SKINNY_ROW_SHAPE}")
+    say("[serve] skinny kernel vs tiled chain by rows M (ms, in turns; "
+        f"quant_matmul takes the skinny kernel up to M={pg.SKINNY_M_MAX}): "
+        + "; ".join(f"M={r['m']} ({r['k']}, {r['n']}) {r['skinny_ms']:.4f} "
+                    f"/ {r['chain_ms']:.4f}" for r in sweep) + f" [{smi}]")
     busy = profile_decode_steps(engine, trace, cfg)
     table = qp["embed"]["table"]
     deq_ms = cuda_ms(lambda: qz.dequant_leaf(table), 5)
@@ -2510,6 +2634,7 @@ def phase_serve(dev, smi):
                 prefill_tokens=clock_b.prefill_tokens,
                 counters=c["counters"], first_step_gemms=n_gemms,
                 max_abs_kernel_vs_plain=worst, shapes=timings,
+                m_sweep=sweep, kernel_row=kernel_row,
                 table_dequant_ms=deq_ms, peak_bytes=peak, profile=busy,
                 wall_s=wall), counts
 
@@ -2842,6 +2967,7 @@ def main(argv=None) -> int:
     models = run(phase_models, dev, smi)
     serve, serve_counts = run(phase_serve, dev, smi)
     rows, grid, extra = run(phase_timings, dev, worst, smi)
+    rows["quant_gemm_f32"] = serve["kernel_row"]
 
     by_path = dict(main=counts, refine=refine_counts, qr=qr_counts,
                    ensemble=ens_counts, golden=golden_counts, ft=ft_counts,
@@ -2851,9 +2977,16 @@ def main(argv=None) -> int:
             check(by_path[path][name] > 0,
                   f"{name} was not launched on the {path} path")
     src = "src/repro_torch/kernels/csrc/"
+
+    def home(name):
+        """The first path of ON_PATH that launches the kernel (main if
+        none does): its ``launches`` are that path's run's."""
+        return next((p for p, names in ON_PATH.items() if name in names),
+                    "main")
     kernels = [dict(name=name, route="cuda", source=src + SOURCES[name],
                     replaces=REPLACES[name],
-                    launches=counts[name],
+                    launches=by_path[home(name)][name],
+                    launches_path=home(name),
                     launches_by_path={path: c[name]
                                       for path, c in by_path.items()},
                     max_abs_err=r["max_abs_err"], ms=r["ms"],

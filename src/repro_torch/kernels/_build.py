@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("posit_gemm.cu", "posit_gemm_simple.cu", "posit_codec.cu")
+SOURCES = ("posit_gemm.cu", "posit_gemm_simple.cu", "posit_codec.cu",
+           "posit_gemm_skinny.cu")
 HEADERS = ("posit_codec.cuh", "launch.cuh")
 # sm_90a: Hopper.  No --use_fast_math: the kernels rely on IEEE f32 adds
 # (TwoSum) and on subnormals being kept.
@@ -99,6 +100,7 @@ def bind(handle: ctypes.CDLL) -> ctypes.CDLL:
                                      i, i, i, p],
         "posit_decode_split_launch": [p, p, p, i64, i, p],
         "posit_encode_launch": [p, p, i64, i, p],
+        "posit_gemm_skinny_launch": [p, p, p, p, i, i, i, i, i, p],
     }
     for name, args in sigs.items():
         fn = getattr(handle, name, None)
@@ -109,6 +111,7 @@ def bind(handle: ctypes.CDLL) -> ctypes.CDLL:
 
 
 _KERNEL = re.compile(r"(posit_gemm_kernel|posit_gemm_simple_kernel|"
+                     r"posit_gemm_skinny_kernel|"
                      r"decode_planes_kernel|decode_split_kernel|"
                      r"encode_posit_kernel)I((?:L[a-z]+\d+E)+)E")
 

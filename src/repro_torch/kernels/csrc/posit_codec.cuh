@@ -75,6 +75,35 @@ POSIT_FN void decode_split(int32_t p, float &hi, float &lo) {
   if (is_nar) hi = __int_as_float(0x7FC00000);
 }
 
+// decode_split's hi for a format of <= 16 bits, built from the word's bits:
+// such a word's value has at most 13 fraction bits and a scale within
+// f32's normal range, so hi is the value exactly (lo is zero), sign and
+// magnitude as decode_split's product gives them, +0 for zero, and the
+// same NaN for NaR.  It skips decode_split's int-to-float conversion and
+// two multiplies; tests/test_torch_quant_gemm.py and chip_smoke.py hold
+// it to decode_split on every pattern of the three formats.
+template <int NBITS, int ES>
+POSIT_FN float decode_hi(int32_t p) {
+  static_assert(NBITS <= 16, "decode_hi: formats of <= 16 bits");
+  const uint32_t a = p < 0 ? 0u - (uint32_t)p : (uint32_t)p;
+  const uint32_t body = a << (33 - NBITS);           // regime MSB at bit 31
+  const bool r0 = (body >> 31) != 0u;
+  const uint32_t y = r0 ? ~body : body;              // bit 31 == 0 now
+  const int m = __clz(y | 1u);                       // regime run length
+  const int k = r0 ? m - 1 : -m;
+  const uint32_t u = (body << m) << 1;               // strip regime+term
+  int e = 0;
+  if constexpr (ES > 0) e = (int)(u >> (32 - ES));
+  const uint32_t frac = u << ES;                     // frac MSB at bit 31
+  const int scale = k * (1 << ES) + e;
+  const uint32_t bits = ((uint32_t)p & 0x80000000u) |
+                        ((uint32_t)(scale + 127) << 23) | (frac >> 9);
+  // selects, not branches: a branch per word keeps a warp from overlapping
+  // the decodes of neighbouring words (PERF.md §6)
+  const int32_t zero_or = p == 0 ? 0 : (int32_t)bits;
+  return __int_as_float(p == kNar<NBITS> ? 0x7FC00000 : zero_or);
+}
+
 // encode_posit_f32: f32 -> posit word, RNE with ties to the even pattern,
 // clamped to maxpos/minpos, inf/NaN -> NaR.
 template <int NBITS, int ES>

@@ -44,6 +44,10 @@ and one kernel launch for the whole batch, ``xla_quire`` one batched f64
 matmul (its sums may be ordered otherwise than the 2-D call's, within the
 same bound), ``faithful`` broadcasts, and ``quire_exact``, plain
 PyTorch, runs the matrices in turn.
+
+``serving.quantize.quant_matmul`` reaches its GEMM wrappers through this
+module too (``posit_gemm_f32``, and ``quant_gemm_f32``, the skinny
+kernel), so that a recorder patching them here sees every call.
 """
 from __future__ import annotations
 
@@ -53,6 +57,8 @@ from repro_torch.core import posit
 from repro_torch.core.formats import P32E2, PositFormat
 from repro_torch.kernels import ref
 from repro_torch.kernels.posit_gemm import posit_gemm, posit_gemm_f32
+# re-exported for serving.quantize.quant_matmul (module docstring)
+from repro_torch.kernels.posit_gemm import quant_gemm_f32 as quant_gemm_f32
 from repro_torch.obs import metrics as _obs_metrics
 from repro_torch.obs import numerics as _obs_numerics
 from repro_torch.obs import trace as _obs_trace

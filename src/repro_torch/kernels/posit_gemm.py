@@ -17,7 +17,12 @@ Two implementations of every function live here:
   planes, then the tiled GEMM kernel on those planes (``csrc/posit_gemm.cu``).
   ``posit_gemm_f32_simple`` / ``posit_gemm_simple`` launch the first
   kernel (``csrc/posit_gemm_simple.cu``), kept as the yardstick whose bits
-  the tiled kernel must give; no study calls them.  The decode and encode
+  the tiled kernel must give; no study calls them.  ``quant_gemm_f32``
+  is a posit-quantized linear at few rows in one launch (the skinny
+  kernel, ``csrc/posit_gemm_skinny.cu``): it encodes the f32 activations
+  and reads the stored int16/int8 weight words itself, and gives the
+  bits of the encode kernel, the pre-pass and the tiled kernel times the
+  channel scales.  The decode and encode
   device functions also get elementwise kernels of their own
   (``csrc/posit_codec.cu``) so they can be checked exhaustively on the
   card;
@@ -58,6 +63,14 @@ PLANE_ALIGN = 4         # floats: the planes' leading dimensions are 16 bytes
 _NAN_BITS = 0x7FC00000
 
 MODES = ("split3", "split3_comp")
+
+# The rows up to which serving/quantize.py's quant_matmul takes the skinny
+# kernel (quant_gemm_f32) instead of the encode kernel, the pre-pass and
+# the tiled kernel.  Timed in turns at M = 1, 4, 16 and 64 on the serve
+# shapes (PERF.md §6), the skinny kernel was the faster at every one, by
+# 1.09x at (64, 896, 4864) where its four row groups each decode the
+# words again; past 64 it is not measured.
+SKINNY_M_MAX = 64
 
 
 # --------------------------------------------------------------------------
@@ -258,6 +271,48 @@ def decode_planes_plain(a_p: torch.Tensor, b_p: torch.Tensor,
                   plane(bh, ldb), plane(bl, ldb) if lo else None)
 
 
+def channel_scales(sexp: torch.Tensor) -> torch.Tensor:
+    """2^sexp as f32 from its exponent bits: exact for every integer
+    exponent in [-126, 127] (the quantizer's scales and their inverses)."""
+    return ((sexp.to(torch.int32) + 127) << 23).view(torch.float32)
+
+
+def _check_quant_args(x, words, sexp, fmt, bk):
+    if fmt.nbits > 16:
+        raise ValueError(f"quant_gemm_f32 takes formats of <= 16 bits, got "
+                         f"{fmt.name}: its words have a lo part, and "
+                         "posit_gemm_f32 (the tiled kernel) takes them")
+    want = torch.int16 if fmt.nbits > 8 else torch.int8
+    if x.dtype != torch.float32 or words.dtype != want \
+            or sexp.dtype != torch.int8:
+        raise TypeError(f"quant_gemm_f32 takes f32 activations, {want} "
+                        f"{fmt.name} words and int8 exponents, got "
+                        f"{x.dtype}, {words.dtype}, {sexp.dtype}")
+    if (x.dim() != 2 or words.dim() != 2 or sexp.shape != words.shape[1:]
+            or x.shape[1] != words.shape[0]):
+        raise ValueError(f"bad quantized GEMM shapes {tuple(x.shape)} @ "
+                         f"{tuple(words.shape)}, scales {tuple(sexp.shape)}")
+    if not x.device == words.device == sexp.device:
+        raise ValueError(f"operands on {x.device}, {words.device} and "
+                         f"{sexp.device}")
+    if bk <= 0 or bk % KERNEL_BK:
+        raise ValueError(f"bk={bk} must be a positive multiple of "
+                         f"{KERNEL_BK}")
+
+
+def quant_gemm_f32_plain(x: torch.Tensor, words: torch.Tensor,
+                         sexp: torch.Tensor, fmt: PositFormat, *,
+                         bk: int = 32) -> torch.Tensor:
+    """Plain version of the skinny kernel: ``encode_posit_f32_plain`` of
+    the activations, the words widened to int32, ``posit_gemm_f32_plain``
+    (split3) and the channel scales, one f32 multiply."""
+    _check_quant_args(x, words, sexp, fmt, bk)
+    y = posit_gemm_f32_plain(encode_posit_f32_plain(x, fmt),
+                             words.to(torch.int32), bk=bk, mode="split3",
+                             fmt=fmt)
+    return y * channel_scales(sexp)
+
+
 # --------------------------------------------------------------------------
 # wrappers: kernel for CUDA tensors, plain version for CPU tensors
 # --------------------------------------------------------------------------
@@ -428,6 +483,36 @@ def posit_gemm_simple(a_p: torch.Tensor, b_p: torch.Tensor, *, bk: int = 128,
                           negate=negate, fmt=fmt)
 
 
+def quant_gemm_f32(x: torch.Tensor, words: torch.Tensor, sexp: torch.Tensor,
+                   fmt: PositFormat, *, bk: int = 32) -> torch.Tensor:
+    """A posit-quantized linear, y = (encode(x) @ words) * 2^sexp: x (M, K)
+    f32, words (K, N) the stored words (int16 for p16e1, int8 for p8e2 and
+    p8e0), sexp (N,) int8, K summed in chunks of ``bk`` (a multiple of 16).
+
+    CUDA tensors: one launch of the skinny kernel, bit-identical for every
+    M to ``posit_gemm_f32(encode_posit_f32(x), words.to(int32), bk=bk,
+    mode="split3") * channel_scales(sexp)`` on the card; CPU tensors: the
+    plain version.  Formats of more than 16 bits (p32e2, whose words have
+    a lo part) are not taken: they keep the tiled kernel."""
+    _check_quant_args(x, words, sexp, fmt, bk)
+    if not x.is_cuda:
+        return quant_gemm_f32_plain(x, words, sexp, fmt, bk=bk)
+    (m, k), n = x.shape, words.shape[1]
+    if k == 0:
+        return torch.zeros((m, n), device=x.device) * channel_scales(sexp)
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    xc, wc, sc = x.contiguous(), words.contiguous(), sexp.contiguous()
+    with torch.cuda.device(x.device):
+        rc = _build.lib().posit_gemm_skinny_launch(
+            xc.data_ptr(), wc.data_ptr(), sc.data_ptr(), out.data_ptr(), m,
+            n, k, FMT_IDS[fmt.name], bk, _stream(xc))
+    _raise_on(rc, "quant_gemm_f32")
+    quant_gemm_f32.launches += 1
+    return out
+
+
 def decode_split_f32(p: torch.Tensor, fmt: PositFormat = P32E2):
     """Posit words -> (hi, lo) f32; the elementwise kernel of the GEMM's
     decode device function for CUDA tensors, the plain version on CPU."""
@@ -481,7 +566,7 @@ def encode_p16_f32(x: torch.Tensor) -> torch.Tensor:
 
 KERNEL_WRAPPERS = (posit_gemm_f32, posit_gemm, decode_planes,
                    decode_split_f32, encode_posit_f32, posit_gemm_f32_simple,
-                   posit_gemm_simple)
+                   posit_gemm_simple, quant_gemm_f32)
 for _w in KERNEL_WRAPPERS:
     _w.launches = 0
 

@@ -18,17 +18,26 @@ under the reference's names:
 * ``backend="xla"`` — decode the words to f32 and run the baseline
   ``torch.matmul`` (weights-only semantics: activations untouched).
 * ``backend="pallas"`` — in the port this is the **Hopper posit GEMM
-  kernel**: the activations are encoded to the same format and both word
-  operands go to ``kernels.posit_gemm.posit_gemm_f32`` (split3, f32
-  accumulation over K chunks of 32, as the reference's block); on a CUDA
-  tensor that is the decode pre-pass and the tiled kernel, on a CPU
-  tensor its plain version.  Full-posit semantics: activations round to
-  the lattice too.  The activation encode is ``encode_posit_f32``, the
-  GEMM epilogue's encode as an elementwise kernel: the reference's
-  ``from_float32_bits`` rounding, bit for bit (both are correctly
-  rounded; tests/test_torch_serving.py holds them equal), in one launch
-  where ``from_float32_bits`` is ~90 eager ops.  A kernel that fails to
-  build or launch raises; nothing falls back.
+  kernels**: full-posit semantics, the activations round to the weights'
+  format too, and the product is split3 with f32 accumulation over K
+  chunks of 32 (the reference's block).  At most ``SKINNY_M_MAX`` rows
+  (``kernels/posit_gemm.py``: 64, chosen from the times in PERF.md §6;
+  every linear of a decode step and a prefill token) of a format of
+  <= 16 bits go to ``quant_gemm_f32``, the skinny kernel: one launch
+  that encodes the activations, reads the stored int16/int8 words,
+  splits K over the card and multiplies by the channel scales.  More
+  rows, or p32e2 words (which have a lo part), go to the encode kernel
+  (``encode_posit_f32``), the words widened to int32 and
+  ``posit_gemm_f32`` (the decode pre-pass and the tiled kernel), then
+  ``y * scale``.  The two give the same bits for every M on the card
+  (``chip_smoke.py``'s ``[serve]`` holds them equal), so the threshold
+  changes no word and batched == sequential holds at any width.  On a CPU
+  tensor both are the same plain composition.  The activation encode is
+  the GEMM epilogue's encode: the reference's ``from_float32_bits``
+  rounding, bit for bit (both are correctly rounded;
+  tests/test_torch_serving.py holds them equal), where
+  ``from_float32_bits`` is ~90 eager ops.  A kernel that fails to build
+  or launch raises; nothing falls back.
 
 Decoding a word array of a <= 16-bit format is a lookup in the format's
 table of values (``to_float32_bits`` of every pattern), which gives the
@@ -80,10 +89,6 @@ _ENCODE_CHUNK = 1 << 22     # elements encoded at a time by quantize_leaf
 _BK = 32                    # the reference's K accumulation chunk
 
 
-def _pow2_f32(e: torch.Tensor) -> torch.Tensor:
-    """2.0**e as f32 from its exponent field, exact for -126 <= e <= 127."""
-    return ((e.to(torch.int32) + 127) << 23).view(torch.float32)
-
 
 def channel_scale_exp(w: torch.Tensor) -> torch.Tensor:
     """Per-output-channel power-of-two exponent e (int8) with max|w| / 2^e
@@ -108,7 +113,8 @@ def quantize_leaf(pl: dict, qc: QuantConfig) -> dict:
     else:
         sexp = torch.zeros(w.shape[:-2] + (w.shape[-1],), dtype=torch.int8,
                            device=w.device)
-    scaled = (w * _pow2_f32(-sexp.to(torch.int32))[..., None, :]).reshape(-1)
+    scaled = (w * _pg.channel_scales(-sexp.to(torch.int32))[..., None, :]
+              ).reshape(-1)
     # the encode is elementwise: in chunks, so that its int64 temporaries
     # stay small beside a full vocabulary's table
     words = torch.empty(scaled.shape, dtype=wire_dtype(fmt), device=w.device)
@@ -143,7 +149,7 @@ def decode_words(words: torch.Tensor, fmt_name: str) -> torch.Tensor:
 
 
 def _scales(ql: dict) -> torch.Tensor:
-    return _pow2_f32(ql["sexp"].to(torch.int32))
+    return _pg.channel_scales(ql["sexp"])
 
 
 def dequant_leaf(ql: dict, dtype=torch.float32) -> torch.Tensor:
@@ -232,31 +238,35 @@ def quant_matmul(x: torch.Tensor, ql: dict,
     output (exact: 2^e distributes over the f32 sum).
 
     ``backend="xla"``: decode the words to f32 and run the baseline
-    matmul.  ``backend="pallas"``: encode x to the same format and run
-    the posit GEMM kernel on the two word operands (the stored narrow
-    words widened to int32, sign-extended), ``bk=32`` as the
-    reference's accumulation chunk; the GEMM is called through
-    ``kernels.ops``, where ``rgemm`` reaches it too."""
+    matmul.  ``backend="pallas"``: encode x to the same format and
+    multiply the words, ``bk=32`` as the reference's accumulation chunk:
+    up to ``SKINNY_M_MAX`` rows of a <= 16-bit format on the skinny
+    kernel (``quant_gemm_f32``, one launch), otherwise on the encode
+    kernel and the tiled kernel (the stored words widened to int32),
+    with the same bits (module docstring); both are called through
+    ``kernels.ops``, where ``rgemm`` reaches the tiled kernel too."""
     fmt_name, backend = ql["qmeta"]
     fmt = get_format(fmt_name)
     words = ql["qw"]
-    scale = _scales(ql)
     lead = x.shape[:-1]
     d_in, d_out = words.shape[-2], words.shape[-1]
 
     if backend == "pallas":
         x2 = x.reshape(-1, d_in).to(torch.float32)
-        xw = _pg.encode_posit_f32(x2, fmt)
-        y = _ops.posit_gemm_f32(xw, words.to(torch.int32), bk=_BK,
-                                mode="split3", fmt=fmt)
-        y = y * scale
+        if x2.shape[0] <= _pg.SKINNY_M_MAX and fmt.nbits <= 16:
+            y = _ops.quant_gemm_f32(x2, words, ql["sexp"], fmt, bk=_BK)
+        else:
+            xw = _pg.encode_posit_f32(x2, fmt)
+            y = _ops.posit_gemm_f32(xw, words.to(torch.int32), bk=_BK,
+                                    mode="split3", fmt=fmt)
+            y = y * _scales(ql)
         return y.reshape(lead + (d_out,)).to(compute_dtype)
     if backend != "xla":
         raise ValueError(f"unknown quant_matmul backend {backend!r}")
 
     w = decode_words(words, fmt_name)
     y = torch.matmul(x.to(compute_dtype).float(), w.to(compute_dtype).float())
-    return (y * scale).to(compute_dtype)
+    return (y * _scales(ql)).to(compute_dtype)
 
 
 # --------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """The port's GEMM sources built for the host, for the CPU tests.
 
-``csrc/posit_gemm.cu`` and ``csrc/posit_gemm_simple.cu`` compile with g++
-and ``-DPOSIT_CODEC_HOST``: ``csrc/launch.cuh`` then runs each block's CUDA
-threads as fibers that yield at ``__syncthreads()`` and ``cp.async`` as a
-copy, so the kernels' indexing, masking, fold order and batch offsets run
-here, through the same C entry points the card's library has.  Slow, and
-only for small shapes.  It imports neither jax nor the JAX package.
+``csrc/posit_gemm.cu``, ``csrc/posit_gemm_simple.cu`` and
+``csrc/posit_gemm_skinny.cu`` compile with g++ and ``-DPOSIT_CODEC_HOST``:
+``csrc/launch.cuh`` then runs each block's CUDA threads (a cluster's
+blocks together) as fibers that yield at ``__syncthreads()`` and at the
+cluster barrier, and ``cp.async`` as a copy, so the kernels' indexing,
+masking, fold order, batch offsets and cluster reads run here, through
+the same C entry points the card's library has.  Slow, and only for small
+shapes.  It imports neither jax nor the JAX package.
 """
 import ctypes
 import shutil
@@ -22,16 +24,20 @@ CSRC = (Path(__file__).resolve().parent.parent / "src" / "repro_torch"
         / "kernels" / "csrc")
 
 
+GEMM_SOURCES = ("posit_gemm", "posit_gemm_simple", "posit_gemm_skinny")
+
+
 def build_host_gemm_lib(out: Path) -> ctypes.CDLL:
-    """Build both GEMM sources into ``out`` (skips the calling test when
-    g++ is missing) and bind the kernel library's C entry points."""
+    """Build the three GEMM sources into ``out``, one g++ process each,
+    all started together (skips the calling test when g++ is missing),
+    and bind the kernel library's C entry points."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ not available to build the kernels for the host")
     flags = ["-x", "c++", "-std=c++20", "-O1", "-fPIC", "-ffp-contract=off",
              "-DPOSIT_CODEC_HOST", f"-I{CSRC}", "-Wall", "-Werror",
              "-Wno-unknown-pragmas"]
-    objs = [out / f"{src}.o" for src in ("posit_gemm", "posit_gemm_simple")]
+    objs = [out / f"{src}.o" for src in GEMM_SOURCES]
     procs = [subprocess.Popen([gxx, *flags, "-c", "-o", str(obj),
                                str(CSRC / f"{obj.stem}.cu")],
                               stderr=subprocess.PIPE, text=True)
@@ -89,4 +95,17 @@ def host_simple(lib, a, b, fmt, kc, mode, emit, negate):
         a.ctypes.data, b.ctypes.data, out.ctypes.data, m, n, k, k, n, n,
         TG.FMT_IDS[fmt.name], int(mode == "split3_comp"), int(emit),
         int(negate), kc, None) == 0
+    return out
+
+
+def host_skinny(lib, x, words, sexp, fmt, kc=32):
+    """The skinny kernel on numpy operands: f32 activations (m, k), the
+    stored words (k, n) (int16 / int8) and int8 exponents (n,)."""
+    x = np.ascontiguousarray(x, np.float32)
+    words, sexp = np.ascontiguousarray(words), np.ascontiguousarray(sexp)
+    (m, k), n = x.shape, words.shape[1]
+    out = np.full((m, n), np.nan, np.float32)
+    assert lib.posit_gemm_skinny_launch(
+        x.ctypes.data, words.ctypes.data, sexp.ctypes.data, out.ctypes.data,
+        m, n, k, TG.FMT_IDS[fmt.name], kc, None) == 0
     return out

@@ -20,8 +20,10 @@ so must the checksums, the observability records of faithful runs and the
 guarded solve ladder.  A collector changes no word and no kernel launch.
 Four ranks on the one card (gloo, host-staged collectives) factor a 2x2
 block-cyclic LU whose words and pivots must equal the single-device LU's.
-The serving path's quantized matmul runs on the kernel within the same
-bound, and the serving engine's batched tokens equal its sequential ones.
+The serving path's quantized matmul runs on the skinny kernel within the
+same bound; the skinny kernel's output equals the tiled kernel's chain
+(encode, widened words, pre-pass, tiled GEMM, scale) bit for bit at every
+M, and the serving engine's batched tokens equal its sequential ones.
 """
 import numpy as np
 import pytest
@@ -474,10 +476,11 @@ def test_cuda_host_staged_2x2_rgetrf(cuda_device, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["p16e1", "p8e2"])
 def test_cuda_quant_matmul_kernel_matches_plain(cuda_device, fmt):
-    """``quant_matmul(backend="pallas")`` on the card: one encode, one
-    pre-pass and one GEMM launch, the quantized words the CPU's, and the
-    output, like the plain CPU run's, within sqrt(K)*8e-8 of the exact
-    product of the activation and weight words."""
+    """``quant_matmul(backend="pallas")`` on the card: one launch of the
+    skinny kernel (no separate encode, pre-pass or tiled GEMM launch), the
+    quantized words the CPU's, and the output, like the plain CPU run's,
+    within sqrt(K)*8e-8 of the exact product of the activation and weight
+    words."""
     from repro_torch.serving import QuantConfig
     from repro_torch.serving import quantize as TQ
     f = TF.FORMATS[fmt]
@@ -496,9 +499,7 @@ def test_cuda_quant_matmul_kernel_matches_plain(cuda_device, fmt):
     torch.cuda.synchronize()
     after = TG.launch_counts()
     assert {k: after[k] - before[k] for k in after
-            if after[k] != before[k]} == {"posit_gemm_f32": 1,
-                                          "decode_planes": 1,
-                                          "encode_posit_f32": 1}
+            if after[k] != before[k]} == {"quant_gemm_f32": 1}
     av = TP.to_float64(TP.from_float32_bits(x, f), f)
     bv = TQ.dequant_leaf(leaf).double()
     bound = np.sqrt(896) * 8e-8
@@ -533,5 +534,43 @@ def test_cuda_engine_batched_equals_sequential(cuda_device):
     for rid in batched:
         assert np.array_equal(batched[rid], seq[rid]), rid
     counts = TG.launch_counts()
-    assert counts["posit_gemm_f32"] == counts["decode_planes"] > 0
-    assert counts["posit_gemm_f32"] % (7 * cfg.n_layers) == 0
+    assert counts["quant_gemm_f32"] > 0
+    assert counts["quant_gemm_f32"] % (7 * cfg.n_layers) == 0
+    assert counts["posit_gemm_f32"] == counts["decode_planes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["p16e1", "p8e2"])
+def test_cuda_skinny_kernel_equals_tiled_chain(cuda_device, fmt):
+    """The skinny kernel against the path it replaces (the encode kernel,
+    the words widened to int32, the pre-pass and the tiled kernel at
+    bk=32, the channel scales), bit for bit, at M in {1, 3, 4, 16} and
+    ragged K and N (one to 27 chunks, 16-byte staged rows or not), with
+    ±inf and NaN activations and a NaR weight word; one launch each."""
+    from repro_torch.serving import QuantConfig
+    from repro_torch.serving import quantize as TQ
+    f = TF.FORMATS[fmt]
+    rng = np.random.default_rng(43)
+    for k, n in ((300, 70), (40, 9), (856, 96), (16, 33), (64, 128)):
+        w = (rng.standard_normal((k, n)) * 0.05).astype(np.float32)
+        w[k // 3, n // 2] = np.nan
+        leaf = TQ.quantize_leaf({"w": torch.from_numpy(w).to(cuda_device),
+                                 "axes": (None, None)},
+                                QuantConfig(fmt=fmt, backend="pallas"))
+        for m in (1, 3, 4, 16):
+            x = rng.standard_normal((m, k)).astype(np.float32)
+            if m >= 4:
+                x[1, 2], x[2, k - 1], x[3, 0] = np.inf, -np.inf, np.nan
+            x = torch.from_numpy(x).to(cuda_device)
+            before = TG.quant_gemm_f32.launches
+            got = TG.quant_gemm_f32(x, leaf["qw"], leaf["sexp"], f)
+            assert TG.quant_gemm_f32.launches == before + 1
+            want = TG.posit_gemm_f32(TG.encode_posit_f32(x, f),
+                                     leaf["qw"].to(torch.int32), bk=32,
+                                     fmt=f) * TG.channel_scales(leaf["sexp"])
+            torch.cuda.synchronize()
+            g, h = got.cpu(), want.cpu()
+            assert torch.equal(g.isnan(), h.isnan()), (k, n, m)
+            assert torch.equal(g[~g.isnan()].view(torch.int32),
+                               h[~h.isnan()].view(torch.int32)), (k, n, m)
+            assert not g.isnan().all()

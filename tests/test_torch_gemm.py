@@ -413,8 +413,9 @@ def test_device_codec_source_matches_plain_on_host(tmp_path):
 
 @pytest.fixture(scope="module")
 def host_gemm_lib(tmp_path_factory):
-    """csrc/posit_gemm.cu and csrc/posit_gemm_simple.cu built for the host
-    with g++ (tests/host_kernels.py)."""
+    """The GEMM sources (csrc/posit_gemm.cu, csrc/posit_gemm_simple.cu and
+    csrc/posit_gemm_skinny.cu) built for the host with g++
+    (tests/host_kernels.py)."""
     return hk.build_host_gemm_lib(tmp_path_factory.mktemp("host_gemm"))
 
 

@@ -238,20 +238,31 @@ def test_quant_matmul_pallas_within_split3_bound(fmt, shape):
 
 
 def test_quant_matmul_reaches_kernel_through_ops(monkeypatch):
-    """The ``pallas`` backend calls the GEMM through ``kernels.ops``, the
-    attribute chip_smoke's recorder patches; it takes bk=32 and split3."""
+    """The ``pallas`` backend calls its GEMMs through ``kernels.ops``, the
+    attributes chip_smoke's recorder patches, at bk=32: the skinny kernel
+    (``quant_gemm_f32``) up to ``SKINNY_M_MAX`` rows, the tiled one
+    (``posit_gemm_f32``, split3) above."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import posit_gemm as pg
     seen = []
-    real = ops.posit_gemm_f32
+    real_q, real_t = ops.quant_gemm_f32, ops.posit_gemm_f32
 
-    def spy(a, b, **kw):
+    def spy_q(x, words, sexp, fmt, **kw):
+        seen.append((tuple(x.shape), tuple(words.shape), kw["bk"]))
+        return real_q(x, words, sexp, fmt, **kw)
+
+    def spy_t(a, b, **kw):
         seen.append((tuple(a.shape), tuple(b.shape), kw["bk"], kw["mode"]))
-        return real(a, b, **kw)
-    monkeypatch.setattr(ops, "posit_gemm_f32", spy)
+        return real_t(a, b, **kw)
+    monkeypatch.setattr(ops, "quant_gemm_f32", spy_q)
+    monkeypatch.setattr(ops, "posit_gemm_f32", spy_t)
     w = np.random.default_rng(8).standard_normal((40, 24)).astype(np.float32)
     tq = t_q.quantize_leaf(_tleaf(w), TS.QuantConfig(backend="pallas"))
     t_q.quant_matmul(torch.ones((2, 3, 40)), tq)
-    assert seen == [((6, 40), (40, 24), 32, "split3")]
+    monkeypatch.setattr(pg, "SKINNY_M_MAX", 5)
+    t_q.quant_matmul(torch.ones((2, 3, 40)), tq)
+    assert seen == [((6, 40), (40, 24), 32),
+                    ((6, 40), (40, 24), 32, "split3")]
 
 
 def test_quantized_prefill_matches_reference():
