@@ -99,7 +99,7 @@ def bind(handle: ctypes.CDLL) -> ctypes.CDLL:
         "posit_gemm_simple_launch": [p, p, p, i, i, i, i64, i64, i64, i, i,
                                      i, i, i, p],
         "posit_decode_split_launch": [p, p, p, i64, i, p],
-        "posit_encode_launch": [p, p, i64, i, p],
+        "posit_encode_launch": [p, p, i64, i, i, p],
         "posit_gemm_skinny_launch": [p, p, p, p, i, i, i, i, i, p],
     }
     for name, args in sigs.items():

@@ -102,6 +102,8 @@ struct dim3 {
 };
 struct float4 { float x, y, z, w; };
 struct int4 { int x, y, z, w; };
+struct short4 { short x, y, z, w; };
+struct char4 { signed char x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }

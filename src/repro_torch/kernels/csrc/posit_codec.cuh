@@ -5,10 +5,12 @@
 // encode_posit_f32.  Bit-identical to them, and to the plain PyTorch
 // versions in repro_torch/kernels/posit_gemm.py.
 //
-// Every shift is done on uint32 with a count below 32: C++ leaves larger
-// counts and signed overflow undefined, where XLA defines them.  Where the
-// JAX code shifts an int32 right arithmetically, the result is masked, so a
-// logical shift gives the same bits.  The header is plain C++ apart from
+// Every shift has a count below 32 and no add overflows: C++ leaves larger
+// counts and signed overflow undefined, where XLA defines them.  decode_split
+// shifts uint32 only (where the JAX code shifts an int32 right
+// arithmetically, the result is masked, so a logical shift gives the same
+// bits); encode_posit shifts an int32 right arithmetically on purpose (the
+// regime run), which g++ and nvcc define.  The header is plain C++ apart from
 // the CUDA qualifiers and intrinsics named below, so it can also be built
 // for the host by defining them (POSIT_CODEC_HOST).
 #pragma once
@@ -24,6 +26,9 @@ static inline float __int_as_float(int32_t b) {
 }
 static inline int32_t __float_as_int(float f) {
   int32_t b; std::memcpy(&b, &f, 4); return b;
+}
+static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
+  return (uint32_t)((((uint64_t)hi << 32) | lo) >> (s & 31u));
 }
 #else
 #define POSIT_FN __device__ __forceinline__
@@ -105,44 +110,55 @@ POSIT_FN float decode_hi(int32_t p) {
 }
 
 // encode_posit_f32: f32 -> posit word, RNE with ties to the even pattern,
-// clamped to maxpos/minpos, inf/NaN -> NaR.
+// clamped to maxpos/minpos, f32 subnormals -> ±minpos, ±0 -> 0, inf/NaN ->
+// NaR.  Written for the integer pipes: one clamp, one 64-bit pattern, one
+// rounding add, one negate, two selects, and no branch: 27 SASS
+// instructions a value in encode_posit_kernel's loop (tools/kernel_sass.py,
+// sm_90a), against 135 for the reference's field-by-field form.
+//
+// * Clamp the magnitude bits a = |x| to [2^-MS, 2^MS - ulp]: every value
+//   beyond maxpos's scale becomes the f32 below 2^MS, which rounds up to
+//   maxpos, and everything below 2^-MS (subnormals too) becomes 2^-MS,
+//   which is minpos exactly.  The scale needs no clamp after that.
+// * c + 2^23 adds 1 to the biased exponent E, so its low ES exponent bits
+//   are e = (E - 127) mod 2^ES (127 = -1 mod 2^ES) and its field above them
+//   is k + 128 / 2^ES, k = floor((E - 127) / 2^ES): [e|frac] is c + 2^23's
+//   low ES + 23 bits.
+// * The pattern: t = [1 0 | e | frac] (k >= 0) or [0 1 | e | frac]
+//   (k < 0) from bit 31 down, shifted right arithmetically by k or
+//   -k - 1 (k ^ (k >> 31), at most NBITS - 3): the regime run and its
+//   terminator, then [e|frac].  The bits that leave the word go to the
+//   low half of a 64-bit value (one funnel shift), so the NBITS - 1
+//   pattern bits, the guard and the sticky bits are all there.
+// * RNE: with g bits below the pattern, add 2^(g-1) - 1 + the pattern's
+//   lsb: the carry rounds up above half, and at a tie only when the lsb
+//   is 1.  The pattern is never all ones (the regime always has its
+//   terminator), so the carry stays inside it.
+// * The sign by one negate; zero and inf/NaN by the final selects.
 template <int NBITS, int ES>
 POSIT_FN int32_t encode_posit(float x) {
   constexpr int MS = (NBITS - 2) << ES;              // max_scale
+  constexpr uint32_t kLow = (uint32_t)(127 - MS) << 23;         // 2^-MS
+  constexpr uint32_t kHigh = ((uint32_t)(127 + MS) << 23) - 1u; // < 2^MS
   const int32_t bits = __float_as_int(x);
-  const bool sign = bits < 0;
-  const int expf = (bits >> 23) & 0xFF;
-  const uint32_t man = (uint32_t)bits & 0x7FFFFFu;
-  const bool is_zero = expf == 0 && man == 0u;
-  const bool is_nar = expf == 255;
-  const int scale = expf == 0 ? -150 : expf - 127;
-  const bool over = scale >= MS;
-  const bool under = scale < -MS && !is_zero;
-  const int sc = scale < -MS ? -MS : (scale > MS - 1 ? MS - 1 : scale);
-
-  const int k = sc >> ES;                            // floor(sc / 2^ES)
-  const uint32_t e = (uint32_t)sc & ((1u << ES) - 1u);
-  const int reg_len = k >= 0 ? k + 2 : 1 - k;
-  const int avail = (NBITS - 1) - reg_len;           // room for [e|frac]
-  const uint32_t regime = k >= 0 ? ((1u << (k + 1)) - 1u) << 1 : 1u;
-  const uint32_t ef = (1u << (ES + 23)) | (e << 23) | man;   // [1|e|frac23]
-  const int d0 = (ES + 23) - avail;
-  const int d = d0 > 0 ? d0 : 0;                     // [e|frac] bits dropped
-  const int shl = d0 < 0 ? -d0 : 0;                  // or left-padded
-  const uint32_t kf = (ef >> d) - (1u << ((ES + 23) - d));   // strip hidden
-  const uint32_t pat0 = (regime << avail) | (kf << shl);
-  const uint32_t dropped = ef & ((1u << d) - 1u);
-  const uint32_t half = (1u << d) >> 1;
-  const bool rnd = dropped > half ||
-                   (dropped == half && dropped != 0u && (pat0 & 1u));
-  uint32_t pat = pat0 + (rnd ? 1u : 0u);
-
-  if (over) pat = (uint32_t)kMaxpos<NBITS>;
-  if (under) pat = 1u;
-  uint32_t out = sign ? 0u - pat : pat;
-  if (is_zero) out = 0u;
-  if (is_nar) out = (uint32_t)kNar<NBITS>;
-  return (int32_t)out;
+  const uint32_t a = (uint32_t)bits & 0x7FFFFFFFu;
+  uint32_t c = a < kLow ? kLow : a;
+  c = c > kHigh ? kHigh : c;
+  const uint32_t c1 = c + (1u << 23);
+  const int k = (int)(c1 >> (23 + ES)) - (128 >> ES);  // floor(scale / 2^ES)
+  const int km = k >> 31;                            // -1 where k < 0
+  const uint32_t t = (km ? 0x40000000u : 0x80000000u) |
+                     ((c1 << (7 - ES)) & 0x3FFFFFFFu);  // [run|e|frac]
+  const uint32_t s = (uint32_t)(k ^ km);             // k or -k - 1
+  const uint32_t hi = (uint32_t)((int32_t)t >> s);   // regime, then [e|frac]
+  const uint32_t lo = __funnelshift_r(0u, t, s);     // the bits shifted out
+  const uint64_t v = ((uint64_t)hi << 32) | lo;      // pattern at bits 63..
+  const uint32_t lsb = (hi >> (33 - NBITS)) & 1u;
+  const uint64_t r = v + ((1ull << (64 - NBITS)) - 1u) + lsb;
+  const int32_t pat = (int32_t)(r >> (65 - NBITS));
+  const int32_t sm = bits >> 31;                     // -1 where negative
+  const int32_t out = (pat ^ sm) - sm;
+  return a >= 0x7F800000u ? kNar<NBITS> : (a == 0u ? 0 : out);
 }
 
 }  // namespace posit_codec

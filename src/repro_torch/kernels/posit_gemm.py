@@ -22,14 +22,18 @@ Two implementations of every function live here:
   kernel, ``csrc/posit_gemm_skinny.cu``): it encodes the f32 activations
   and reads the stored int16/int8 weight words itself, and gives the
   bits of the encode kernel, the pre-pass and the tiled kernel times the
-  channel scales.  The decode and encode
+  channel scales.  The encode and decode
   device functions also get elementwise kernels of their own
-  (``csrc/posit_codec.cu``) so they can be checked exhaustively on the
-  card;
+  (``csrc/posit_codec.cu``): ``encode_posit_f32`` is on the serving path
+  (the K/V rows, straight into their int16/int8 wire words, and the
+  activations above the skinny kernel's rows), and both are checked
+  exhaustively on the card;
 * the **plain PyTorch versions** (``*_plain``), which the wrappers use for
-  CPU tensors and only for them.  They mirror the device functions op for
-  op (bit-identical to the reference's ``decode_split_f32`` /
-  ``encode_posit_f32``), lay the planes out as the pre-pass does, and
+  CPU tensors and only for them.  They are the reference's
+  ``decode_split_f32`` / ``encode_posit_f32`` op for op (the decode device
+  function mirrors them; the encode device function is a branch-free
+  rewrite held to them on every f32 pattern), lay the planes out as the
+  pre-pass does, and
   emulate the kernels' tile dataflow for the GEMM (bk-chunked hi/lo
   products with f32 accumulation, TwoSum for ``_comp``).  Their f32 sums
   are ordered by the library's matmul, so the GEMM is held to the
@@ -128,10 +132,25 @@ def decode_split_f32_plain(p: torch.Tensor, fmt: PositFormat = P32E2):
     return torch.where(is_nar, nan, hi), lo
 
 
-def encode_posit_f32_plain(x: torch.Tensor,
-                           fmt: PositFormat = P32E2) -> torch.Tensor:
-    """f32 values -> int32 posit words (RNE, ties to the even *pattern*,
-    clamped to maxpos/minpos, inf/NaN -> NaR), int32 ops only."""
+_WORD_DTYPES = (torch.int32, torch.int16, torch.int8)
+
+
+def _check_word_dtype(fmt: PositFormat, out_dtype: torch.dtype):
+    if out_dtype not in _WORD_DTYPES or out_dtype.itemsize * 8 < fmt.nbits:
+        raise ValueError(f"{fmt.name} words do not fit {out_dtype}; the "
+                         "encode writes int32, int16 or int8 words at least "
+                         f"{fmt.nbits} bits wide")
+
+
+def encode_posit_f32_plain(x: torch.Tensor, fmt: PositFormat = P32E2,
+                           out_dtype: torch.dtype = torch.int32
+                           ) -> torch.Tensor:
+    """f32 values -> posit words (RNE, ties to the even *pattern*, clamped
+    to maxpos/minpos, inf/NaN -> NaR), int32 ops only, in the reference's
+    field-by-field form (the device function is a branch-free rewrite that
+    the tests hold to it).  ``out_dtype`` (int32, int16 or int8, wide
+    enough for the format) narrows the int32 words, which is exact."""
+    _check_word_dtype(fmt, out_dtype)
     nbits, es = fmt.nbits, fmt.es
     ms = fmt.max_scale
     bits = x.to(torch.float32).view(torch.int32)
@@ -167,7 +186,7 @@ def encode_posit_f32_plain(x: torch.Tensor,
     pat = torch.where(under, 1, pat)
     out = torch.where(sign, 0 - pat, pat)
     out = torch.where(is_zero, 0, out)
-    return torch.where(is_nar, fmt.nar_pattern, out).to(torch.int32)
+    return torch.where(is_nar, fmt.nar_pattern, out).to(out_dtype)
 
 
 def _check_operands(a_p, b_p):
@@ -534,23 +553,35 @@ def decode_split_f32(p: torch.Tensor, fmt: PositFormat = P32E2):
     return hi, lo
 
 
-def encode_posit_f32(x: torch.Tensor, fmt: PositFormat = P32E2):
-    """f32 -> posit words; the elementwise kernel of the GEMM's encode
-    device function for CUDA tensors, the plain version on CPU."""
+# Values per launch of the encode kernel: below 2^31 (its 32-bit
+# indices), a multiple of 4 so that every chunk keeps the vector alignment.
+ENCODE_CHUNK = 1 << 30
+
+
+def encode_posit_f32(x: torch.Tensor, fmt: PositFormat = P32E2,
+                     out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """f32 -> posit words of ``out_dtype`` (int32, or the narrower int16 /
+    int8 that holds the format's words: the int32 words narrowed).
+
+    CUDA tensors: the elementwise encode kernel, one launch (one per
+    ``ENCODE_CHUNK`` values beyond that), writing ``out_dtype`` itself;
+    CPU tensors: the plain version."""
     if x.dtype != torch.float32:
         raise TypeError(f"encode_posit_f32 takes float32, got {x.dtype}")
+    _check_word_dtype(fmt, out_dtype)
     if not x.is_cuda:
-        return encode_posit_f32_plain(x, fmt)
+        return encode_posit_f32_plain(x, fmt, out_dtype)
     src = x.contiguous()
-    out = torch.empty(src.shape, dtype=torch.int32, device=x.device)
-    if src.numel() == 0:
-        return out
+    out = torch.empty(src.shape, dtype=out_dtype, device=x.device)
+    n, ob = src.numel(), out.element_size()
     with torch.cuda.device(x.device):
-        rc = _build.lib().posit_encode_launch(
-            src.data_ptr(), out.data_ptr(), src.numel(), FMT_IDS[fmt.name],
-            _stream(src))
-    _raise_on(rc, "encode_posit")
-    encode_posit_f32.launches += 1
+        for c0 in range(0, n, ENCODE_CHUNK):
+            rc = _build.lib().posit_encode_launch(
+                src.data_ptr() + 4 * c0, out.data_ptr() + ob * c0,
+                min(ENCODE_CHUNK, n - c0), FMT_IDS[fmt.name], ob,
+                _stream(src))
+            _raise_on(rc, "encode_posit")
+            encode_posit_f32.launches += 1
     return out
 
 

@@ -85,11 +85,13 @@ def kv_layer_indices(cfg: ArchConfig) -> list[int]:
 def encode_kv(x: torch.Tensor, fmt_name: str | None) -> torch.Tensor:
     """f32 K/V -> storage words (identity when fmt is None): the
     reference's ``from_float32_bits`` rounding, by the elementwise encode
-    kernel on a CUDA tensor (its plain version on a CPU one)."""
+    kernel on a CUDA tensor, which writes the wire words in its one launch
+    (its plain version on a CPU one)."""
     if fmt_name is None:
         return x.to(torch.float32)
     fmt = get_format(fmt_name)
-    return encode_posit_f32(x.to(torch.float32), fmt).to(wire_dtype(fmt))
+    return encode_posit_f32(x.to(torch.float32), fmt,
+                            out_dtype=wire_dtype(fmt))
 
 
 def decode_kv(w: torch.Tensor, fmt_name: str | None,

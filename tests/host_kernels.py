@@ -1,7 +1,8 @@
-"""The port's GEMM sources built for the host, for the CPU tests.
+"""The port's kernel sources built for the host, for the CPU tests.
 
-``csrc/posit_gemm.cu``, ``csrc/posit_gemm_simple.cu`` and
-``csrc/posit_gemm_skinny.cu`` compile with g++ and ``-DPOSIT_CODEC_HOST``:
+``csrc/posit_gemm.cu``, ``csrc/posit_gemm_simple.cu``,
+``csrc/posit_gemm_skinny.cu`` and ``csrc/posit_codec.cu`` (the elementwise
+codec kernels) compile with g++ and ``-DPOSIT_CODEC_HOST``:
 ``csrc/launch.cuh`` then runs each block's CUDA threads (a cluster's
 blocks together) as fibers that yield at ``__syncthreads()`` and at the
 cluster barrier, and ``cp.async`` as a copy, so the kernels' indexing,
@@ -24,11 +25,12 @@ CSRC = (Path(__file__).resolve().parent.parent / "src" / "repro_torch"
         / "kernels" / "csrc")
 
 
-GEMM_SOURCES = ("posit_gemm", "posit_gemm_simple", "posit_gemm_skinny")
+GEMM_SOURCES = ("posit_gemm", "posit_gemm_simple", "posit_gemm_skinny",
+                "posit_codec")
 
 
 def build_host_gemm_lib(out: Path) -> ctypes.CDLL:
-    """Build the three GEMM sources into ``out``, one g++ process each,
+    """Build the kernel sources into ``out``, one g++ process each,
     all started together (skips the calling test when g++ is missing),
     and bind the kernel library's C entry points."""
     gxx = shutil.which("g++")
@@ -108,4 +110,16 @@ def host_skinny(lib, x, words, sexp, fmt, kc=32):
     assert lib.posit_gemm_skinny_launch(
         x.ctypes.data, words.ctypes.data, sexp.ctypes.data, out.ctypes.data,
         m, n, k, TG.FMT_IDS[fmt.name], kc, None) == 0
+    return out
+
+
+def host_encode(lib, x, fmt, out_dtype=np.int32):
+    """The encode kernel on a numpy f32 array (any alignment; the launcher
+    takes the vector loop where both pointers allow it), words of
+    ``out_dtype`` (int32, int16 or int8)."""
+    x = np.ascontiguousarray(x, np.float32).reshape(-1)
+    out = np.full(x.shape, -1, out_dtype)
+    assert lib.posit_encode_launch(x.ctypes.data, out.ctypes.data, x.size,
+                                   TG.FMT_IDS[fmt.name], out.itemsize,
+                                   None) == 0
     return out

@@ -38,6 +38,11 @@ from repro_torch.lapack import decomp as TD
 from repro_torch.lapack import error_eval as TE
 from repro_torch.lapack import solve as TS
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
+
 N, NB, SIGMAS, SEEDS = 25, 8, (1e-2, 1.0, 1e2), (0, 1)
 KW = dict(nb=NB, gemm_backend="faithful")
 

@@ -7,7 +7,8 @@ package, so it runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: the decode/encode kernels and the GEMM's decode pre-pass are
-integer/IEEE-exact, so they must equal their plain versions bit for bit;
+integer/IEEE-exact, so they must equal their plain versions bit for bit
+(the encode's int16/int8 wire words too);
 the GEMM sums in f32 in its own order, so it is held to the reference's
 bound sqrt(K) * 8e-8 against the exact product, and its fused encode must
 equal encode(± its own f32 output) bit for bit.  The tiled GEMM kernel
@@ -62,6 +63,48 @@ def test_cuda_codec_kernels_match_plain(cuda_device, name):
     x = torch.from_numpy(bits.view(np.float32)).to(cuda_device)
     assert torch.equal(TG.encode_posit_f32(x, fmt),
                        TG.encode_posit_f32_plain(x, fmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FMTS)
+def test_cuda_encode_narrow_words_and_one_kv_launch(cuda_device, name):
+    """The encode kernel's wire-dtype words equal its int32 words narrowed
+    (aligned, unaligned and odd-length inputs); encode_kv makes one encode
+    launch and no cast after it."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.core.policy import wire_dtype
+    from repro_torch.serving.kv_cache import encode_kv
+    fmt = TF.FORMATS[name]
+    wire = wire_dtype(fmt)
+    x = torch.from_numpy(np.concatenate(
+        [ti.f32_corners(20000),
+         ti.encode_boundaries(fmt, np.random.default_rng(3))])).to(
+             cuda_device)
+    for xs in (x, x[1:], x[:4095]):
+        got = TG.encode_posit_f32(xs, fmt, out_dtype=wire)
+        assert got.dtype == wire
+        assert torch.equal(got, TG.encode_posit_f32(xs, fmt).to(wire))
+        assert torch.equal(got, TG.encode_posit_f32_plain(xs, fmt, wire))
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+    rows = torch.randn(4, 2, 64, device=cuda_device)
+    before = TG.encode_posit_f32.launches
+    with Ops() as seen:
+        words = encode_kv(rows, name)
+    assert TG.encode_posit_f32.launches == before + 1
+    assert words.dtype == wire
+    assert not [op for op in seen.ops if "copy" in op or "_to" in op], \
+        seen.ops
+    assert torch.equal(words, TG.encode_posit_f32_plain(rows.cpu(), fmt,
+                                                        wire).to(cuda_device))
 
 
 @pytest.mark.cuda

@@ -33,6 +33,7 @@ from repro_torch.kernels.ops import rgemm
 from repro_torch.lapack import decomp, refine
 
 import torch_dist_cases as tc
+import cpu_tests  # noqa: F401  (one PyTorch thread)
 
 GRIDS = [(2, 2), (1, 4), (4, 1)]
 GIDS = [f"{p}x{q}" for p, q in GRIDS]

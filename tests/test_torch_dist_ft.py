@@ -26,6 +26,7 @@ from repro_torch.checkpoint.store import (latest_step, restore_checkpoint,
 from repro_torch.dist import launch
 
 import torch_dist_cases as tc
+import cpu_tests  # noqa: F401  (one PyTorch thread)
 
 GRIDS = [(2, 2), (1, 4)]
 GIDS = [f"{p}x{q}" for p, q in GRIDS]

@@ -21,6 +21,7 @@ from repro_torch.dist import pblas as TB
 from repro_torch.dist import pdecomp as TD
 
 import torch
+import cpu_tests  # noqa: F401  (one PyTorch thread)
 
 GRIDS = [(1, 1), (2, 2), (1, 4), (4, 1), (2, 3)]
 # (m, k, n, nb): A (m, k), B (k, n)

@@ -51,6 +51,10 @@ from repro_torch.lapack import refine as TR
 from repro_torch.lapack import solve as TS
 from repro_torch.quire.quire import Quire, q_renorm
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
 N, NB = 32, 16
 
 

@@ -12,10 +12,11 @@
 * The decode pre-pass's plain version lays the reference's decoded planes
   out as the tiled kernel reads them.
 * The CUDA sources are built for the host with g++: the device functions
-  (csrc/posit_codec.cuh) are checked against the plain versions, and the
-  two GEMM kernels (csrc/posit_gemm.cu, csrc/posit_gemm_simple.cu) run on
-  the CPU through csrc/launch.cuh's emulation, where the tiled kernel
-  must give the simple kernel's bits.  On the card the kernels are
+  (csrc/posit_codec.cuh) are checked against the plain versions, the
+  encode kernel (csrc/posit_codec.cu) in its three output widths too, and
+  the two GEMM kernels (csrc/posit_gemm.cu, csrc/posit_gemm_simple.cu)
+  run on the CPU through csrc/launch.cuh's emulation, where the tiled
+  kernel must give the simple kernel's bits.  On the card the kernels are
   checked by tests/test_torch_cuda.py.
 """
 import ctypes
@@ -28,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_tests  # noqa: F401  (one PyTorch thread)
 import host_kernels as hk
 import torch_inputs as ti
 from repro.core import formats as JF
@@ -413,10 +415,37 @@ def test_device_codec_source_matches_plain_on_host(tmp_path):
 
 @pytest.fixture(scope="module")
 def host_gemm_lib(tmp_path_factory):
-    """The GEMM sources (csrc/posit_gemm.cu, csrc/posit_gemm_simple.cu and
-    csrc/posit_gemm_skinny.cu) built for the host with g++
-    (tests/host_kernels.py)."""
+    """The kernel sources (csrc/posit_gemm.cu, csrc/posit_gemm_simple.cu,
+    csrc/posit_gemm_skinny.cu and csrc/posit_codec.cu) built for the host
+    with g++ (tests/host_kernels.py)."""
     return hk.build_host_gemm_lib(tmp_path_factory.mktemp("host_gemm"))
+
+
+@pytest.mark.parametrize("name", FMTS)
+def test_encode_kernel_source_matches_plain_on_host(host_gemm_lib, name):
+    """csrc/posit_codec.cu's encode kernel, built for the host, gives the
+    plain version's words in every output width that holds the format's
+    words (int32, int16, int8): on the f32 corners, every power of two and
+    the format's rounding boundaries with their f32 neighbours, and a
+    fixed-stride sweep of the 2^32 patterns (~2^20 values); an unaligned
+    slice takes the scalar loop, an odd length the vector loop's tail."""
+    fmt = TF.FORMATS[name]
+    sweep = np.arange(0, 2**32, 4099, dtype=np.uint64).astype(np.uint32)
+    x = np.concatenate([ti.f32_corners(20000), sweep.view(np.float32),
+                        ti.encode_boundaries(fmt, np.random.default_rng(3))])
+    want = TG.encode_posit_f32_plain(_t(x), fmt).numpy()
+    for dt in (np.int32, np.int16, np.int8):
+        if np.dtype(dt).itemsize * 8 < fmt.nbits:
+            continue
+        assert np.array_equal(hk.host_encode(host_gemm_lib, x, fmt, dt),
+                              want.astype(dt)), dt
+        want_dt = TG.encode_posit_f32_plain(_t(x[:4099]), fmt,
+                                            getattr(torch, dt.__name__))
+        assert np.array_equal(want_dt.numpy(), want[:4099].astype(dt))
+        for lo, hi in ((1, 4099), (0, 4095)):
+            assert np.array_equal(
+                hk.host_encode(host_gemm_lib, x[lo:hi], fmt, dt),
+                want[lo:hi].astype(dt)), (dt, lo, hi)
 
 
 @pytest.mark.parametrize("name", FMTS)

@@ -18,6 +18,10 @@ from repro_torch.core import posit as TP
 from repro_torch.lapack import decomp as TD
 from repro_torch.lapack import solve as TS
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
 
 def _words(x):
     """Posit words of numpy-made values, fed to both packages (the port's

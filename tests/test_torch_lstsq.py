@@ -22,6 +22,11 @@ from repro_torch.core import posit as TP
 from repro_torch.lapack import qr as TQ
 from repro_torch.lapack import refine as TR
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
+
 M, N, NB = 20, 12, 8
 
 

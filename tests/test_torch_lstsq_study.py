@@ -24,6 +24,11 @@ from repro.lapack import refine as JR
 from repro_torch.lapack import error_eval as TE
 from repro_torch.lapack import refine as TR
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
+
 M, N, NB, SEED = 20, 12, 8, 4
 
 

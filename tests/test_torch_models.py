@@ -38,6 +38,10 @@ from repro_torch.models import serve_step
 from repro_torch.models import attention as t_attn
 from repro_torch.models.lm import _encoder as t_encoder
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
 FAMILY_ARCHS = ["qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-780m",
                 "zamba2-2.7b", "gemma3-12b", "whisper-tiny",
                 "internvl2-26b"]

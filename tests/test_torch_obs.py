@@ -56,6 +56,10 @@ from repro_torch.obs import metrics as TM
 from repro_torch.obs import numerics as TN
 from repro_torch.quire import quire_gemm_limbs
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
 N, NB = 32, 16
 BACKEND = "faithful"
 

@@ -21,6 +21,7 @@ import torch
 
 import posit_oracle as O
 import torch_inputs as ti
+from cpu_tests import JIT_CODEC
 from repro.core import formats as JF
 from repro.core import posit as JP
 from repro_torch.core import formats as TF
@@ -60,6 +61,12 @@ def _j_pconvert_all(w, src):
 @functools.partial(jax.jit, static_argnames=("name",))
 def _j_rounding_eps(x, name):
     return JP.rounding_eps(x, JF.FORMATS[name])
+
+
+def _same_bits(x, y):
+    x, y = np.asarray(x), np.asarray(y)
+    return x.dtype == y.dtype and np.array_equal(x.view(np.uint8),
+                                                 y.view(np.uint8))
 
 
 @functools.partial(jax.jit, static_argnames=("name",))
@@ -111,6 +118,36 @@ def test_from_float64_matches_jax(name):
     want = np.asarray(JP.from_float64(jnp.asarray(x), JF.FORMATS[name]))
     got = TP.from_float64(torch.from_numpy(x), TF.FORMATS[name]).numpy()
     assert np.array_equal(got, want), x[got != want][:5]
+
+
+@pytest.mark.parametrize("name", FMTS)
+def test_jitted_reference_codec_equals_eager(name):
+    """The jitted reference codec that the drivers' test files run
+    (tests/cpu_tests.py) gives the eager calls' bits on the inputs of
+    the codec tests above and below (the same seeds, so the same arrays),
+    and on the f32 corners."""
+    jfmt = JF.FORMATS[name]
+    rng = np.random.default_rng(0)
+    w0 = _words(name, rng)
+    rng = np.random.default_rng(1)
+    x1 = _values(rng, lo=-300, hi=300)
+    x1 = np.concatenate([x1, np.asarray(JP.to_float64(
+        jnp.asarray(_words(name, rng)), jfmt))])
+    rng = np.random.default_rng(2)
+    with np.errstate(over="ignore"):
+        x32 = _values(rng, 20000, -160, 140).astype(np.float32)
+    bits = rng.integers(0, 2**32, 20000, dtype=np.uint64).astype(np.uint32)
+    x32 = np.concatenate([x32, bits.view(np.float32)])
+    w2 = _words(name, rng)
+    corners = ti.f32_corners()
+    for fn, arg in (("to_float64", w0), ("from_float64", x1),
+                    ("from_float64", _values(np.random.default_rng(7))),
+                    ("from_float32_bits", x32),
+                    ("from_float32_bits", corners),
+                    ("to_float32_bits", w2)):
+        eager = getattr(JP, fn)(jnp.asarray(arg), jfmt)
+        assert _same_bits(JIT_CODEC[fn](jnp.asarray(arg), jfmt), eager), \
+            (name, fn)
 
 
 @pytest.mark.parametrize("name", ["p16e1", "p8e2", "p8e0"])

@@ -28,6 +28,11 @@ from repro_torch.core.formats import P16E1
 from repro_torch.lapack import blas as TB
 from repro_torch.lapack import qr as TQ
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
+
 M, N, NB = 20, 12, 8
 NAR = np.int32(-2**31)
 

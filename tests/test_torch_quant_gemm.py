@@ -27,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import cpu_tests  # noqa: F401  (one PyTorch thread)
 import host_kernels as hk
 from repro.serving import quantize as r_q
 

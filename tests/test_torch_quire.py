@@ -27,6 +27,10 @@ from repro_torch.core import formats as TF
 from repro_torch.core import posit as TP
 from repro_torch.kernels.ops import rgemm as t_rgemm
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
 FMTS = ["p32e2", "p16e1", "p8e2", "p8e0"]
 
 # The reference's quire ops, jitted here so that each compiles once

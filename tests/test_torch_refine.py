@@ -36,6 +36,10 @@ from repro_torch.lapack import decomp as TD
 from repro_torch.lapack import refine as TR
 from repro_torch.lapack import solve as TS
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
 
 def _words(x, fmt=None):
     """Posit words of numpy-made values (the port's from_float64, pinned

@@ -25,6 +25,10 @@ import torch
 from repro.lapack import error_eval as JE
 from repro_torch.lapack import error_eval as TE
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
 DIGITS = 0.5
 CELL = dict(n=48, sigma=1.0, nb=16)
 

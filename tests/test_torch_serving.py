@@ -44,6 +44,23 @@ from repro_torch.serving import kv_cache as t_kv
 from repro_torch.serving import quantize as t_q
 from repro_torch.serving import study as t_study
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
+
+# The reference's quantize_leaf, jitted for the tests that quantize whole
+# models (quantize_params calls it leaf by leaf, ~10 eager ops a leaf):
+# one program a leaf shape, the same words and exponents
+# (test_quantize_leaf_bit_identical holds the port to the leaf itself).
+_JIT_QUANTIZE_LEAF = jax.jit(r_q.quantize_leaf, static_argnames="qc")
+
+
+@pytest.fixture
+def jitted_reference_quantizer(monkeypatch):
+    monkeypatch.setattr(r_q, "quantize_leaf", _JIT_QUANTIZE_LEAF)
+
+
 FMTS = ("p32e2", "p16e1", "p8e2")
 ENGINE_RTOL = 1e-5
 
@@ -182,6 +199,7 @@ def test_nar_refusal_and_saturation():
     assert (qb["qw"].numpy() == t_fmt("p8e2").maxpos_pattern).all()
 
 
+@pytest.mark.usefixtures("jitted_reference_quantizer")
 def test_param_bytes_and_golden_zone_equal_reference(qwen):
     rc, rp, tc, tp = qwen
     for fmt in ("p16e1", "p8e2"):
@@ -265,6 +283,7 @@ def test_quant_matmul_reaches_kernel_through_ops(monkeypatch):
                     ((6, 40), (40, 24), 32, "split3")]
 
 
+@pytest.mark.usefixtures("jitted_reference_quantizer")
 def test_quantized_prefill_matches_reference():
     """Quantized forward through every leaf kind the quantizer touches
     (embedding table, linears, MoE experts, conv kernels), xla backend."""
@@ -543,6 +562,7 @@ def test_engine_matches_reference_engine(qwen, monkeypatch):
     assert t_d["counters"]["serve.steps"] == t_rep["steps"]
 
 
+@pytest.mark.usefixtures("jitted_reference_quantizer")
 def test_quant_study_rows_match_reference(qwen):
     """``arch_rows`` on the reference's params and tokens gives the
     reference study's rows (logit errors within 1e-5 of each other, KL

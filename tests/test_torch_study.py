@@ -18,6 +18,10 @@ from repro.lapack import error_eval as JE
 from repro_torch import interop
 from repro_torch.lapack import error_eval as TE
 
+from cpu_tests import jitted_reference_codec  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jitted_reference_codec")
+
 
 @pytest.mark.parametrize("algo", ["lu", "cholesky"])
 def test_backward_error_study_matches_jax(algo):

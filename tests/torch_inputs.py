@@ -64,6 +64,24 @@ def f32_corners(count: int = 100000) -> np.ndarray:
     return np.concatenate([x, specials, corners])
 
 
+def encode_boundaries(fmt: PositFormat, rng, samples: int = 1 << 16
+                      ) -> np.ndarray:
+    """f32 inputs at the encode's decisions for ``fmt``: every f32 power of
+    two, and the midpoints between neighbouring positive posits (every
+    pair for formats of <= 16 bits, ``samples`` sampled pairs of p32),
+    rounded to f32, each with its two f32 neighbours; both signs."""
+    p2 = np.ldexp(1.0, np.arange(-149, 128)).astype(np.float32)
+    maxpos = (1 << (fmt.nbits - 1)) - 1
+    w = (np.arange(1, maxpos, dtype=np.int32) if fmt.nbits <= 16
+         else rng.integers(1, maxpos, samples).astype(np.int32))
+    lo = posit.to_float64(torch.from_numpy(w), fmt).numpy()
+    hi = posit.to_float64(torch.from_numpy(w + 1), fmt).numpy()
+    pts = np.concatenate([p2, ((lo + hi) / 2).astype(np.float32)])
+    pts = np.concatenate([pts, np.nextafter(pts, np.float32(np.inf)),
+                          np.nextafter(pts, np.float32(0))])
+    return np.concatenate([pts, -pts])
+
+
 def posits(rng, shape, lo, hi, fmt: PositFormat = P32E2,
            device="cpu") -> torch.Tensor:
     """Posit words of ``N(0,1) * 2^U(lo, hi)`` values."""

@@ -12,7 +12,12 @@ from a backward branch's target to the branch; a grid-stride elementwise
 kernel's loop is the cost of one element), and its opcodes by class
 (integer ALU, float, memory, control, uniform).  ``--out`` also writes the
 full disassembly there.  Static counts: what a loop's body issues per
-trip, not how often it runs.  Run it where the card and the toolkit are.
+trip, not how often it runs.  For the elementwise codec kernels the line
+also has ``per_value``: the longest loop over the values one trip takes
+(four for ``encode_posit_kernel<NBITS,ES,OB,1>``, whose trip is a 16-byte
+load of four floats; one for its scalar form and for a two-argument
+``encode_posit_kernel<NBITS,ES>``, the form before it).  Run it where the
+card and the toolkit are.
 """
 from __future__ import annotations
 
@@ -69,6 +74,17 @@ def loops(insns):
     return out
 
 
+def values_per_trip(name: str) -> int | None:
+    """Values one grid-stride trip of an elementwise codec kernel takes
+    (None for the other kernels)."""
+    if name.startswith("decode_split_kernel<"):
+        return 1
+    if not name.startswith("encode_posit_kernel<"):
+        return None
+    args = name[name.index("<") + 1:-1].split(",")
+    return 4 if len(args) == 4 and args[3] == "1" else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("names", nargs="*")
@@ -87,9 +103,12 @@ def main(argv=None) -> int:
         if args.names and not any(s in name for s in args.names):
             continue
         by_class = collections.Counter(opcode_class(op) for _, op, _ in insns)
-        print(json.dumps(dict(kernel=name, instructions=len(insns),
-                              loops=loops(insns), by_class=by_class)),
-              flush=True)
+        line = dict(kernel=name, instructions=len(insns), loops=loops(insns),
+                    by_class=by_class)
+        per_trip = values_per_trip(name)
+        if per_trip and line["loops"]:
+            line["per_value"] = max(line["loops"]) / per_trip
+        print(json.dumps(line), flush=True)
     return 0
 
 
