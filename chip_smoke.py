@@ -42,7 +42,18 @@ skinny GEMM kernel, a p16e1 paged KV cache, a seeded trace replayed
 batched and sequentially with equal tokens, the first decode step's
 GEMMs equal to the tiled kernel's chain bit for bit and held to the plain
 version, the skinny kernel against the tiled chain at several rows and
-timed against it), and times the
+timed against it), drives the training path (``[codec]``: the
+policy's codec, ``encode_tensor`` / ``decode_tensor``, on every f32
+pattern and every word of every format against the plain codec;
+``[train]``: qwen2-0.5b at its published widths through the training
+CLI's ``run``, 8 steps at posit32 with every linear's weights and
+activations through ``quantize`` on the encode and decode kernels, the
+first step's codec calls held to the plain codec, and 4 steps at
+bf16_opt16 with p16e1 AdamW moments on the same kernels; ``[train
+parity]``: the tiny configs' losses, gradients and train steps card vs
+CPU; ``[train resume]``: a killed and resumed run against a straight
+one; ``[train dp]``: two ranks on the card, the p16e1-compressed
+gradient sum against one process), and times the
 kernels: the tiled kernel and the simple one interleaved,
 the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks, the whole
 ``rgemm`` trailing-update call and its ``quire_exact`` form, and the
@@ -54,10 +65,12 @@ the card's name and power limit as ``nvidia-smi`` reports them, and the
 line before that the per-kernel JSON (``launches``: on the kernel's own
 path, the first of ``ON_PATH`` that launches it (``launches_path``; the
 §5.1 main path for the GEMM and the pre-pass, QR for the fused GEMM,
-serving for the skinny GEMM and the encode kernel);
+serving for the skinny GEMM and the encode kernel, training for the
+decode kernel);
 ``launches_by_path``: on the §5.1 main path and on the refinement, QR, ensemble,
-golden-zone, protected (``ft``), distributed (``dist``, every rank's)
-and serving (``serve``: both replays of ``[serve]``) paths, each counted
+golden-zone, protected (``ft``), distributed (``dist``, every rank's),
+serving (``serve``: both replays of ``[serve]``) and training
+(``train``: both runs of ``[train]``) paths, each counted
 from zero around its own run; ``on_main_path``:
 launched on one of them; error, times and bound).
 
@@ -72,6 +85,7 @@ import json
 import multiprocessing
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -253,7 +267,23 @@ ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
            "golden": ("posit_gemm_f32", "decode_planes"),
            "ft": ("posit_gemm_f32", "posit_gemm", "decode_planes"),
            "dist": ("posit_gemm_f32", "decode_planes"),
-           "serve": ("quant_gemm_f32", "encode_posit_f32")}
+           "serve": ("quant_gemm_f32", "encode_posit_f32"),
+           "train": ("encode_posit_f32", "decode_split_f32")}
+
+# [train]: qwen2-0.5b at its published widths through launch.train.run,
+# TRAIN_STEPS steps per policy at TRAIN_RUN; [train parity]: the tiny
+# configs card vs CPU; [train resume]: the smoke config, straight vs
+# resumed; [train dp]: two ranks on the card, the smoke config.
+TRAIN_ARCH = "qwen2-0.5b"
+TRAIN_RUN = dict(batch=4, seq=64, lr=1e-3)
+TRAIN_STEPS = {"posit32": 8, "bf16_opt16": 4}
+TRAIN_PARITY_ARCHS = ("qwen2-0.5b", "granite-moe-1b-a400m", "mamba2-780m")
+TRAIN_RTOL = 1e-5            # f32 compute, card vs CPU (library sum order)
+TRAIN_BF16_RTOL = 2e-2       # bf16 compute: each op's bf16 rounding
+TRAIN_RESUME = dict(steps=6, batch=2, seq=16, policy="bf16_opt16")
+TRAIN_DP = dict(arch="qwen2-0.5b", policy="posit_dp", steps=3, batch=4,
+                seq=16, lr=1e-3, seed=0)
+TRAIN_DP_RTOL = 1e-3         # the p16e1 wire's noise (8e-5 on the CPU)
 
 
 def say(*parts):
@@ -400,7 +430,10 @@ def phase_plain_codec(dev):
 
 def phase_codec_kernels(dev):
     """Decode/encode elementwise kernels vs their plain versions; the
-    encode on every f32 pattern (returns those seconds)."""
+    encode on every f32 pattern; ``core.policy``'s codec (the training
+    path's) on every f32 pattern and every word against the plain codec
+    (returns the seconds of the encode kernel's check and of the codec's
+    checks)."""
     import numpy as np
     import torch
     from repro_torch.core import posit
@@ -444,11 +477,13 @@ def encode_exhaustive(dev):
     int8) equal to the int32 words narrowed.  Returns its seconds (a few:
     the script's time limit has no room for minutes)."""
     import torch
+    from repro_torch.core import posit
     from repro_torch.core.formats import FORMATS
-    from repro_torch.core.policy import wire_dtype
+    from repro_torch.core.policy import encode_tensor, wire_dtype
     from repro_torch.kernels import posit_gemm as pg
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    policy_s = 0.0
     for fmt in FORMATS.values():
         narrow = wire_dtype(fmt) if fmt.nbits <= 16 else None
         for c0 in range(0, 1 << 32, ENCODE_CHUNK):
@@ -465,12 +500,59 @@ def encode_exhaustive(dev):
                                   got.to(narrow)),
                       f"encode kernel {fmt.name} {narrow} != its int32 "
                       f"words narrowed on [{c0:#x}, {c0 + ENCODE_CHUNK:#x})")
+            # core.policy.encode_tensor (the kernel, straight into the wire
+            # dtype) against the plain codec's from_float32_bits
+            t1 = time.perf_counter()
+            check(torch.equal(encode_tensor(x, fmt),
+                              posit.from_float32_bits(x, fmt).to(
+                                  wire_dtype(fmt))),
+                  f"encode_tensor {fmt.name} != from_float32_bits on the f32 "
+                  f"patterns [{c0:#x}, {c0 + ENCODE_CHUNK:#x})")
+            torch.cuda.synchronize()
+            policy_s += time.perf_counter() - t1
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     say(f"[kernels] encode_posit on all 2^32 f32 patterns x 4 formats "
         "(p32e2, p16e1, p8e2, p8e0) bit-identical to the plain version on "
         "the card, and the int16/int8 wire words to the int32 words "
-        f"narrowed, in {secs:.2f} s (chunks of {ENCODE_CHUNK})")
+        f"narrowed, in {secs - policy_s:.2f} s (chunks of {ENCODE_CHUNK})")
+    say(f"[codec] encode_tensor (the encode kernel into the wire dtype) on "
+        "all 2^32 f32 patterns x 4 formats bit-identical to the plain "
+        "codec's from_float32_bits on the card (-0, subnormals, inf and NaN "
+        f"payloads included), in {policy_s:.2f} s")
+    return secs, policy_s + decode_exhaustive(dev)
+
+
+def decode_exhaustive(dev):
+    """``core.policy.decode_tensor`` (the decode kernel's pair summed once,
+    the tiny p32e2 words from their table) on every word of every format
+    (all 2^32 p32e2 words in chunks of ``ENCODE_CHUNK``, all 2^16 p16e1 in
+    their int16 wire dtype, all 2^8 of each 8-bit format in int8) against
+    the plain codec's ``to_float32_bits``, bit for bit (NaN for NaR).
+    Returns its seconds."""
+    import torch
+    from repro_torch.core import posit
+    from repro_torch.core.formats import FORMATS
+    from repro_torch.core.policy import decode_tensor, wire_dtype
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for fmt in FORMATS.values():
+        n = 1 << fmt.nbits
+        for c0 in range(0, n, ENCODE_CHUNK):
+            lo = c0 - n // 2
+            w = torch.arange(lo, lo + min(ENCODE_CHUNK, n), dtype=torch.int64,
+                             device=dev).to(torch.int32)
+            got = decode_tensor(w.to(wire_dtype(fmt)), fmt)
+            check(dev_same_bits(got, posit.to_float32_bits(w, fmt)),
+                  f"decode_tensor {fmt.name} != to_float32_bits on the words "
+                  f"[{lo:#x}, {lo + min(ENCODE_CHUNK, n):#x})")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    say("[codec] decode_tensor (the decode kernel's hi + lo) on all 2^32 "
+        "p32e2 words, all 2^16 p16e1 words (int16) and all 2^8 p8e2 / p8e0 "
+        "words (int8) bit-identical to the plain codec's to_float32_bits on "
+        f"the card (minpos, the 38 p32e2 words below 2^-103, maxpos, NaR), "
+        f"in {secs:.2f} s")
     return secs
 
 
@@ -2721,6 +2803,486 @@ def phase_serve(dev, smi):
                 wall_s=wall), counts
 
 
+def dev_same_bits(x, y) -> bool:
+    """``same_bits`` on the device (no copy to the host)."""
+    import torch
+    if x.shape != y.shape or x.dtype != y.dtype:
+        return False
+    if not x.dtype.is_floating_point:
+        return bool(torch.equal(x, y))
+    ib = {8: torch.int64, 4: torch.int32, 2: torch.int16}[x.element_size()]
+    return bool(((x.view(ib) == y.view(ib))
+                 | (torch.isnan(x) & torch.isnan(y))).all())
+
+
+class CodecRecorder:
+    """While open, every call of the two codec kernels' wrappers (as
+    ``core.policy`` makes them, through ``kernels.posit_gemm``) is held
+    to the plain codec on its own operand, bit for bit: the encode's
+    words to ``core.posit.from_float32_bits`` narrowed to the wire dtype,
+    the decode's (hi, lo) to ``decode_split_f32_plain``.  ``calls``:
+    (wrapper, format, shape, equal) per call."""
+
+    def __init__(self):
+        self.calls = []
+        self.saved = None
+
+    def open(self):
+        from repro_torch.core import posit
+        from repro_torch.kernels import posit_gemm as pg
+        self.pg = pg
+        self.saved = enc, dec = pg.encode_posit_f32, pg.decode_split_f32
+        calls = self.calls
+
+        def encode(x, fmt=pg.P32E2, out_dtype=None):
+            import torch
+            out_dtype = out_dtype or torch.int32
+            out = enc(x, fmt, out_dtype=out_dtype)
+            want = posit.from_float32_bits(x, fmt).to(out_dtype)
+            calls.append(("encode_posit_f32", fmt.name, tuple(x.shape),
+                          dev_same_bits(out, want)))
+            return out
+
+        def decode(p, fmt=pg.P32E2):
+            hi, lo = dec(p, fmt)
+            ph, pl = pg.decode_split_f32_plain(p, fmt)
+            calls.append(("decode_split_f32", fmt.name, tuple(p.shape),
+                          dev_same_bits(hi, ph) and dev_same_bits(lo, pl)))
+            return hi, lo
+        # the wrappers count their launches on the module's name, which
+        # is these functions while they are open
+        encode.launches, decode.launches = enc.launches, dec.launches
+        pg.encode_posit_f32, pg.decode_split_f32 = encode, decode
+        return self
+
+    def close(self):
+        if self.saved is not None:
+            pg = self.pg
+            enc, dec = self.saved
+            enc.launches = pg.encode_posit_f32.launches
+            dec.launches = pg.decode_split_f32.launches
+            pg.encode_posit_f32, pg.decode_split_f32 = enc, dec
+            self.saved = None
+
+
+def _train_launches(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] - before[k]}
+
+
+def phase_train(dev, smi):
+    """qwen2-0.5b at its published widths through the training CLI's
+    ``run`` (random weights from seed 0, batch/seq/lr of TRAIN_RUN):
+    TRAIN_STEPS steps at each policy.  posit32: every linear's weights and
+    activations through ``quantize`` on the encode and decode kernels, the
+    first step's codec calls each held to the plain codec on its operand;
+    bf16_opt16: the AdamW moments as p16e1 int16 words on the same
+    kernels, exactly half the f32 moments' bytes.  Each run's losses are
+    finite and its last below its first.  Prints each run's step time (host
+    clock, a device sync a step, the steps after the first), tokens/s,
+    peak memory and codec launches a step, and times the codec at the
+    largest linear's weights.  Returns (report, the launches of both
+    runs): the counts are set to 0 just before each ``run`` and read just
+    after it, so the split step, the profiled step and the codec timings
+    that follow a run are not in them."""
+    import numpy as np
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.core import policy as pol
+    from repro_torch.core.formats import P16E1, P32E2
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.launch.train import run
+    cfg = get_config(TRAIN_ARCH)
+    n_params = None
+    report = {}
+    train_counts = dict.fromkeys(pg.launch_counts(), 0)
+    for policy, steps in TRAIN_STEPS.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks, counts = [], []
+        rec = CodecRecorder() if policy == "posit32" else None
+
+        def on_step(step, metrics, rec=rec):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if rec is not None and step == 0:
+                rec.close()
+            counts.append(pg.launch_counts())
+        pg.reset_launch_counts()       # before the recorder takes them
+        before = pg.launch_counts()
+        if rec is not None:
+            rec.open()
+        t0 = time.perf_counter()
+        try:
+            params, opt, losses = run(TRAIN_ARCH, smoke=False, steps=steps,
+                                      policy=policy, device=dev,
+                                      on_step=on_step, log_every=steps,
+                                      **TRAIN_RUN)
+        finally:
+            if rec is not None:
+                rec.close()
+        for k, n in pg.launch_counts().items():
+            train_counts[k] += n
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(w.numel() for w in tree.leaves(params))
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"[train] {policy}: losses {losses} not finite and falling")
+        step_s = [b - a for a, b in zip(marks, marks[1:])]
+        per_step = [_train_launches(a, b) for a, b in zip(counts, counts[1:])]
+        check(all(c == per_step[0] for c in per_step)
+              and all(per_step[0].get(k, 0) > 0 for k in
+                      ("encode_posit_f32", "decode_split_f32")),
+              f"[train] {policy}: codec launches a step {per_step}")
+        step_ms = 1e3 * float(np.mean(step_s))
+        tok_s = TRAIN_RUN["batch"] * TRAIN_RUN["seq"] / (step_ms / 1e3)
+        r = dict(steps=steps, losses=losses, step_ms=step_ms,
+                 step_ms_each=[1e3 * t for t in step_s], tokens_per_s=tok_s,
+                 peak_bytes=peak, wall_s=wall, launches_per_step=per_step[0],
+                 first_step_launches=_train_launches(before, counts[0]))
+        extra = ""
+        if rec is not None:
+            bad = [c for c in rec.calls if not c[3]]
+            check(rec.calls and not bad, f"[train] posit32 first step: "
+                  f"{len(bad)} of {len(rec.calls)} codec calls differ from "
+                  f"the plain codec: {bad[:4]}")
+            kinds = {}
+            for name, fmt, _, _ in rec.calls:
+                kinds[f"{name}.{fmt}"] = kinds.get(f"{name}.{fmt}", 0) + 1
+            r["first_step_codec_calls"] = kinds
+            extra = (f"; the first step's {len(rec.calls)} codec calls "
+                     f"({json.dumps(kinds)}) each equal to the plain codec "
+                     "on its operand, bit for bit")
+        else:
+            moments = tree.leaves(opt["moments"])
+            held = sum(t.numel() * t.element_size() for t in moments)
+            check(all(t.dtype == torch.int16 for t in moments)
+                  and 2 * held == 8 * n_params,
+                  f"[train] bf16_opt16: moments {held} B, not int16 words "
+                  f"half of {2 * 4 * n_params} B f32")
+            r["moment_bytes"] = held
+            extra = (f"; moments {len(moments)} int16 tensors, {held} B = "
+                     f"half of the f32 moments' {2 * 4 * n_params} B")
+        sp = train_step_split(dataclasses.replace(cfg, policy=policy),
+                              params, opt, dev)
+        r["split"] = sp
+        report[policy] = r
+        busy = ("not measured (no device time in the trace)"
+                if sp["busy"] is None else
+                f"device busy {sp['device_ms']:.2f} of "
+                f"{sp['profiled_wall_ms']:.2f} ms ({100 * sp['busy']:.1f} %); "
+                "by device time: " + "; ".join(
+                    f"{t['name'][:40]} x{t['count']} {t['device_ms']:.2f} ms"
+                    for t in sp["top"]))
+        say(f"[train] {policy} one more step split: forward + backward "
+            f"{sp['fwd_bwd_ms']:.2f} ms, AdamW {sp['adamw_ms']:.2f} ms (host "
+            f"clock, syncs at the boundaries); profiled step: {busy} [{smi}]")
+        say(f"[train] {cfg.name} {policy}: {n_params} params, {steps} steps "
+            f"of batch {TRAIN_RUN['batch']} x seq {TRAIN_RUN['seq']}, lr "
+            f"{TRAIN_RUN['lr']}: losses "
+            + ", ".join(f"{v:.4f}" for v in losses)
+            + f"; step {step_ms:.2f} ms (host clock, a sync a step, steps "
+            f"2-{steps}: " + ", ".join(f"{1e3 * t:.2f}" for t in step_s)
+            + f"), {tok_s:.1f} tokens/s; peak device memory "
+            f"{peak / 2**30:.3f} GiB; codec launches a step "
+            f"{json.dumps(per_step[0])}; run wall {wall:.2f} s{extra} "
+            f"[{smi}]")
+        if policy == "posit32":
+            w = params["layers"][0]["ffn"]["w_down"]["w"]["w"]
+            words = pg.encode_posit_f32(w, P32E2)
+            q_ms = graph_ms(lambda: pol.quantize(w, "p32e2"), 10)
+            e_ms = graph_ms(lambda: pg.encode_posit_f32(w, P32E2), 10)
+            d_ms = graph_ms(lambda: pg.decode_split_f32(words, P32E2), 10)
+            m16 = pol.encode_tensor(w, P16E1)
+            m_ms = graph_ms(lambda: pol.decode_tensor(m16, P16E1), 10)
+            n = w.numel()
+            rate = PEAK_BYTES_PER_S
+            ph, pl = pg.decode_split_f32_plain(words, P32E2)
+            kh, kl = pg.decode_split_f32(words, P32E2)
+            check(dev_same_bits(kh, ph) and dev_same_bits(kl, pl),
+                  "[train] decode kernel != plain at the weight's shape")
+            report["kernel_row"] = dict(
+                name="decode_split_f32", ms=d_ms,
+                plain_ms=cuda_ms(lambda: pg.decode_split_f32_plain(
+                    words, P32E2), 3),
+                bound_ms=12.0 * n / rate * 1e3, bound_by="bytes",
+                library_ms=None, max_abs_err=0.0, shape=list(w.shape))
+            report["codec_at_weight"] = dict(
+                shape=list(w.shape), quantize_ms=q_ms, encode_ms=e_ms,
+                decode_ms=d_ms, moment_decode_ms=m_ms,
+                quantize_bound_ms=8.0 * n / rate * 1e3,
+                encode_bound_ms=8.0 * n / rate * 1e3,
+                decode_bound_ms=12.0 * n / rate * 1e3,
+                moment_decode_bound_ms=6.0 * n / rate * 1e3)
+            say(f"[train] the codec at the w_down weights {tuple(w.shape)} "
+                f"(CUDA graphs of 10): quantize p32e2 {q_ms:.4f} ms (encode "
+                f"+ decode + hi+lo; bound {8.0 * n / rate * 1e3:.4f} ms, "
+                f"bytes), encode kernel {e_ms:.4f} ms (bound "
+                f"{8.0 * n / rate * 1e3:.4f}), decode kernel {d_ms:.4f} ms "
+                f"(bound {12.0 * n / rate * 1e3:.4f}), decode_tensor of "
+                f"p16e1 moments {m_ms:.4f} ms (bound "
+                f"{6.0 * n / rate * 1e3:.4f}) [{smi}]")
+        del params, opt
+    return report, train_counts
+
+
+def train_step_split(cfg, params, opt, dev):
+    """One more step of ``cfg`` on the run's final state, split on the
+    host clock (a device sync at each boundary) into forward + backward
+    and AdamW, then the whole step under ``torch.profiler``: the device's
+    busy share (CUDA kernels' device time over the step's wall) and the
+    kernels that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import ShapeCell
+    from repro_torch.core.policy import torch_dtype
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import (_cast_params, _loss_and_grads,
+                                          make_train_step)
+    from repro_torch.optim import adamw_update
+    pol = cfg.get_policy()
+    batch = make_batch(cfg, ShapeCell("e2e", "train", TRAIN_RUN["seq"],
+                                      TRAIN_RUN["batch"]), 1000,
+                       batch_override=TRAIN_RUN["batch"], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, grads = _loss_and_grads(
+        _cast_params(params, torch_dtype(pol.compute_dtype)), batch, cfg,
+        remat=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    adamw_update(params, opt, grads, lr=TRAIN_RUN["lr"],
+                 compress_moments=pol.opt_compression is not None)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads
+    step = make_train_step(cfg, remat=False, lr=TRAIN_RUN["lr"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t3
+    rows = [(getattr(e, "self_device_time_total", 0.0), e.key, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    device_s = sum(r[0] for r in rows) / 1e6
+    top = sorted(rows, reverse=True)[:6]
+    return dict(fwd_bwd_ms=1e3 * (t1 - t0), adamw_ms=1e3 * (t2 - t1),
+                profiled_wall_ms=1e3 * wall,
+                device_ms=1e3 * device_s if device_s else None,
+                busy=device_s / wall if device_s else None,
+                top=[dict(name=k, count=n, device_ms=t / 1e3)
+                     for t, k, n in top])
+
+
+def _grads_card_cpu(cfg, dev):
+    """(loss, grads) of one forward/backward of tiny ``cfg`` on the CPU
+    and on the card from the same seeded params and batch."""
+    import torch
+    from repro_torch.configs import ShapeCell
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import _cast_params, _loss_and_grads
+    from repro_torch.models import init_params
+    cpu = init_params(0, cfg, device="cpu")
+    batch = make_batch(cfg, ShapeCell("e2e", "train", 16, 2), 0,
+                       device="cpu")
+    out = []
+    for p, b in ((cpu, batch), (tree_to(cpu, dev), tree_to(batch, dev))):
+        loss, _, g = _loss_and_grads(_cast_params(p, torch.float32), b,
+                                     cfg, remat=False)
+        out.append((loss, g))
+    return out
+
+
+def leaves_rel(got, want) -> float:
+    """``rel_err`` of two lists of tensors taken as one vector each."""
+    import torch
+    return rel_err(torch.cat([t.detach().cpu().double().ravel()
+                              for t in got]),
+                   torch.cat([t.detach().cpu().double().ravel()
+                              for t in want]))
+
+
+def phase_train_parity(dev, smi):
+    """Card against CPU from the same seeded params and batch: the tiny
+    configs of TRAIN_PARITY_ARCHS at policy f32 and posit32 (the codec
+    kernels on the card, the plain codec on the host), ``forward_train``'s
+    loss and its gradients (all leaves as one vector) within TRAIN_RTOL;
+    then one ``make_train_step`` of tiny qwen2 at f32, posit32 and
+    bf16_opt16, params and moments held the same way (bf16_opt16's bf16
+    compute to TRAIN_BF16_RTOL, its p16e1 moment words counted apart and
+    their largest distance in ulps printed)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import ShapeCell, get_tiny_config
+    from repro_torch.core.policy import decode_tensor
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    report = {}
+    for arch in TRAIN_PARITY_ARCHS:
+        for policy in ("f32", "posit32"):
+            cfg = get_tiny_config(arch, policy=policy)
+            (cl, cg), (gl, gg) = _grads_card_cpu(cfg, dev)
+            lerr = abs(float(gl) - float(cl)) / abs(float(cl))
+            gerr = leaves_rel(tree.leaves(gg), tree.leaves(cg))
+            worst = max(rel_err(a, b) for a, b in zip(tree.leaves(gg),
+                                                      tree.leaves(cg))
+                        if float(b.abs().max()) > 0)
+            check(lerr < TRAIN_RTOL and gerr < TRAIN_RTOL,
+                  f"[train parity] {arch} {policy}: loss {lerr:.3g}, grads "
+                  f"{gerr:.3g} from the CPU's, limit {TRAIN_RTOL}")
+            report[f"{arch}.{policy}"] = dict(loss_rel=lerr, grads_rel=gerr,
+                                              worst_leaf_rel=worst)
+            say(f"[train parity] {arch} ({cfg.family}) {policy}: loss "
+                f"{float(gl):.6f} vs CPU {float(cl):.6f} ({lerr:.2e} "
+                f"relative), gradients {gerr:.2e} (all leaves; worst leaf "
+                f"{worst:.2e}), limit {TRAIN_RTOL}")
+    for policy in ("f32", "posit32", "bf16_opt16"):
+        cfg = get_tiny_config("qwen2-0.5b", policy=policy)
+        compress = cfg.get_policy().opt_compression is not None
+        cpu = init_params(0, cfg, device="cpu")
+        batch = make_batch(cfg, ShapeCell("e2e", "train", 16, 2), 0,
+                           device="cpu")
+        outs = []
+        for p, b in ((cpu, batch), (tree_to(cpu, dev), tree_to(batch, dev))):
+            outs.append(make_train_step(cfg, remat=False, lr=1e-3)(
+                p, adamw_init(p, compress_moments=compress), b))
+        (cp, co, cm), (gp, go, gm) = outs
+        tol = TRAIN_BF16_RTOL if policy == "bf16_opt16" else TRAIN_RTOL
+        cmo, gmo = tree.leaves(co["moments"]), tree.leaves(go["moments"])
+        apart = ulps = 0
+        if compress:
+            apart = sum(int((a.cpu() != b).sum()) for a, b in zip(gmo, cmo))
+            ulps = max(int((a.cpu().int() - b.int()).abs().max())
+                       for a, b in zip(gmo, cmo))
+            cmo = [decode_tensor(t) for t in cmo]
+            gmo = [decode_tensor(t) for t in gmo]
+        lerr = abs(float(gm["loss"]) - float(cm["loss"])) / float(cm["loss"])
+        perr = leaves_rel(tree.leaves(gp), tree.leaves(cp))
+        merr = leaves_rel(gmo, cmo)
+        check(lerr < tol and perr < tol and merr < tol,
+              f"[train parity] make_train_step {policy}: loss {lerr:.3g}, "
+              f"params {perr:.3g}, moments {merr:.3g}, limit {tol}")
+        n = sum(t.numel() for t in cmo)
+        report[f"step.{policy}"] = dict(loss_rel=lerr, params_rel=perr,
+                                        moments_rel=merr, words_apart=apart,
+                                        max_ulps=ulps, n_moments=n)
+        say(f"[train parity] make_train_step tiny qwen2 {policy}: loss "
+            f"{lerr:.2e}, params {perr:.2e}, moments {merr:.2e} relative "
+            f"card vs CPU (limit {tol})"
+            + (f"; p16e1 moment words: {apart} of {n} apart, at most {ulps} "
+               "ulps (bf16 gradients differ by each op's bf16 rounding)"
+               if compress else ""))
+    return report
+
+
+def phase_train_resume(dev, smi):
+    """The smoke config (bf16_opt16: int16 moments in the checkpoint) on
+    the card: TRAIN_RESUME['steps'] straight steps against half of them,
+    a checkpoint, a fresh ``run`` that resumes from it and the rest; the
+    resumed losses within 1e-5 relative of the straight run's."""
+    import numpy as np
+    import tempfile
+    from repro_torch.launch.train import run
+    steps = TRAIN_RESUME["steps"]
+    kw = dict(steps=steps, batch=TRAIN_RESUME["batch"],
+              seq=TRAIN_RESUME["seq"], ckpt_every=steps // 2, device=dev,
+              policy=TRAIN_RESUME["policy"], log_every=steps)
+    with tempfile.TemporaryDirectory() as tmp:
+        _, _, straight = run(TRAIN_ARCH, ckpt_dir=f"{tmp}/a", **kw)
+        run(TRAIN_ARCH, ckpt_dir=f"{tmp}/b", **dict(kw, steps=steps // 2))
+        _, opt, resumed = run(TRAIN_ARCH, ckpt_dir=f"{tmp}/b", **kw)
+    rel = np.abs(np.array(resumed) / np.array(straight[steps // 2:]) - 1)
+    check(len(resumed) == steps - steps // 2 and int(opt["step"]) == steps
+          and rel.max() < 1e-5,
+          f"[train resume] resumed {resumed} vs straight {straight}")
+    say(f"[train resume] smoke {TRAIN_ARCH} {TRAIN_RESUME['policy']}: "
+        f"{steps} straight steps, losses "
+        + ", ".join(f"{v:.6f}" for v in straight)
+        + f"; {steps // 2} + checkpoint + restart + {steps - steps // 2}: "
+        + ", ".join(f"{v:.6f}" for v in resumed)
+        + f" (max {rel.max():.2e} relative, limit 1e-5)")
+    return dict(straight=straight, resumed=resumed, max_rel=float(rel.max()))
+
+
+def phase_train_dp(dev, smi):
+    """Two ranks sharing the card (gloo on host copies), with nothing else
+    running on it, policy posit_dp, TRAIN_DP['steps'] steps
+    of ``make_train_step_compressed``: the losses within TRAIN_DP_RTOL of
+    one process's ``make_train_step`` on the whole batch; the gradient
+    sums' all-to-all and all-gather bytes each exactly half of an f32
+    all-reduce of the compressed leaves (int16 words on both phases); the
+    ranks' params equal; ``compressed_psum`` of (2, n) cases within 5e-3
+    of the RMS of the plain sum.  The ranks' codec launches are not in the
+    ``train`` path's count."""
+    import numpy as np
+    import torch_dist_cases as tdc
+    from repro_torch.dist import launch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.train import run
+    _build.lib()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = launch.run(tdc.train_dp, 2, 1, Path(tmp) / "dp",
+                         args=(TRAIN_DP, "all", ("all",)), timeout=600,
+                         backend="gloo", device="cuda", host_staging=True)
+    ranks_s = time.perf_counter() - t0
+    _, _, single = run(TRAIN_DP["arch"], steps=TRAIN_DP["steps"],
+                       batch=TRAIN_DP["batch"], seq=TRAIN_DP["seq"],
+                       lr=TRAIN_DP["lr"], policy=TRAIN_DP["policy"],
+                       device=dev, log_every=TRAIN_DP["steps"])
+    rel = max(float(np.abs(np.array(r["losses"]) / np.array(single) - 1)
+                    .max()) for r in res)
+    check(rel < TRAIN_DP_RTOL, f"[train dp] losses "
+          f"{[r['losses'] for r in res]} vs one process {single}")
+    steps = TRAIN_DP["steps"]
+    for r in res:
+        c, half = r["counters"], 2 * r["compressed_elems"]
+        check(c["dist.grads.all-to-all.bytes"] == steps * half
+              and c["dist.grads.all-gather.bytes"] == steps * half,
+              f"[train dp] rank {r['rank']} bytes {c}, expected {half} a "
+              "step on each phase (half of f32)")
+    check(all(np.array_equal(a, b) for a, b in zip(res[0]["params"],
+                                                   res[1]["params"])),
+          "[train dp] the ranks' params differ")
+    cases = {}
+    for name, x in tdc.dp_cases(2).items():
+        exact = x.astype(np.float64).sum(0)
+        plain = (x[0] + x[1]).astype(np.float64)
+        rms = np.sqrt(np.mean(plain ** 2))
+        err = max(float(np.abs(r["cases"]["sums"][f"all.{name}"] - plain)
+                        .max()) / rms for r in res)
+        check(err < 5e-3, f"[train dp] compressed_psum {name} {x.shape}: "
+              f"{err:.3g} of the RMS from the plain psum")
+        cases[name] = dict(shape=list(x.shape), err_over_rms=err,
+                           exact_err=float(np.abs(plain - exact).max()))
+    c = res[0]["counters"]
+    say(f"[train dp] 2 ranks on the card (gloo, host-staged), smoke "
+        f"{TRAIN_DP['arch']} {TRAIN_DP['policy']}, {steps} steps of batch "
+        f"{TRAIN_DP['batch']} x seq {TRAIN_DP['seq']}: losses "
+        + ", ".join(f"{v:.6f}" for v in res[0]["losses"])
+        + f" vs one process " + ", ".join(f"{v:.6f}" for v in single)
+        + f" (max {rel:.2e} relative, limit {TRAIN_DP_RTOL}); rank 0 steps "
+        + ", ".join(f"{1e3 * t:.1f}" for t in res[0]["step_s"])
+        + f" ms; gradient sums: all-to-all "
+        f"{int(c['dist.grads.all-to-all.bytes'])} B, all-gather "
+        f"{int(c['dist.grads.all-gather.bytes'])} B = each half of an f32 "
+        f"psum's {int(2 * c['dist.grads.all-to-all.bytes'])} B for the "
+        f"{res[0]['compressed_elems']} compressed elements; compressed_psum "
+        + ", ".join(f"{k} {tuple(v['shape'])} {v['err_over_rms']:.2e}"
+                    for k, v in cases.items())
+        + f" of the RMS from the plain psum (limit 5e-3); the ranks' wall "
+        f"{ranks_s:.2f} s [{smi}]")
+    return dict(losses=[r["losses"] for r in res], single=single,
+                max_rel=rel, counters=c, cases=cases,
+                step_s=res[0]["step_s"])
+
+
 def profile_decode_steps(engine, trace, cfg, steps=3):
     """The device's busy share over ``steps`` decode steps at full width:
     four of the trace's prompts cut to two tokens are admitted (a short
@@ -3023,6 +3585,8 @@ def main(argv=None) -> int:
     import repro_torch.serving.study  # noqa: F401  (the whole serving path)
     import repro_torch.lapack.error_eval  # noqa: F401
     import repro_torch.dist  # noqa: F401
+    import repro_torch.launch.train  # noqa: F401  (training: steps, optim)
+    import repro_torch.launch.collectives  # noqa: F401
     check(not any(m == "jax" or m.startswith(("jax.", "repro."))
                   or m == "repro" for m in sys.modules),
           "the port pulled in JAX or the JAX package")
@@ -3050,7 +3614,7 @@ def main(argv=None) -> int:
     ref_pool = multiprocessing.get_context("spawn").Pool(1)
     ref_job = ref_pool.apply_async(reference_backend_studies, (str(dev),))
     run(phase_plain_codec, dev)
-    encode_all_s = run(phase_codec_kernels, dev)
+    encode_all_s, codec_s = run(phase_codec_kernels, dev)
     worst = run(phase_gemm, dev)
     compared = run(phase_bit_identity, dev)
     report, counts, main_words = run(phase_main_path, dev, smi)
@@ -3076,12 +3640,17 @@ def main(argv=None) -> int:
     dist_report, dist_counts = run(phase_dist, dev, smi, main_words)
     models = run(phase_models, dev, smi)
     serve, serve_counts = run(phase_serve, dev, smi)
+    train, train_counts = run(phase_train, dev, smi)
+    train_parity = run(phase_train_parity, dev, smi)
+    train_resume = run(phase_train_resume, dev, smi)
+    train_dp = run(phase_train_dp, dev, smi)
     rows, grid, extra = run(phase_timings, dev, worst, smi)
     rows["quant_gemm_f32"] = serve["kernel_row"]
+    rows["decode_split_f32"] = train["kernel_row"]
 
     by_path = dict(main=counts, refine=refine_counts, qr=qr_counts,
                    ensemble=ens_counts, golden=golden_counts, ft=ft_counts,
-                   dist=dist_counts, serve=serve_counts)
+                   dist=dist_counts, serve=serve_counts, train=train_counts)
     for path, names in ON_PATH.items():
         for name in names:
             check(by_path[path][name] > 0,
@@ -3117,12 +3686,15 @@ def main(argv=None) -> int:
                             bytes_per_s=PEAK_BYTES_PER_S),
                  build_s=build_s, ptxas=ptxas, total_s=total_s,
                  phase_s=phase_s, encode_exhaustive_s=encode_all_s,
+                 codec_exhaustive_s=codec_s,
                  identity_comparisons=compared, studies=report,
                  quire=quire, refine=refine_report, mp_cells=mp_cells,
                  qr=qr_report, lstsq=lstsq, ensemble=ens_report,
                  batched=batched, obs=obs_report, golden=golden,
                  ft=ft_report, ft_soak=soak, guarded=guarded,
                  dist=dist_report, models=models, serve=serve,
+                 train=train, train_parity=train_parity,
+                 train_resume=train_resume, train_dp=train_dp,
                  kernels=kernels, timings=list(rows.values()),
                  gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))

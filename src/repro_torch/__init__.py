@@ -26,21 +26,26 @@ factorizations), ``dist`` (the block-cyclic distributed path over
 ``torch.distributed``: a P x Q grid of ranks, ``pdgemm``, ``p_rpotrf`` /
 ``p_rgetrf``, the distributed refinement and the protected drivers),
 ``checkpoint`` (the reference's on-disk form), the LM serving stack:
-``core.policy`` (forward), ``configs`` (the ten architectures, shape
-cells, smoke and tiny configs), ``models`` (every family's prefill and
-decode step, one dict per layer), ``serving`` (``quantize`` with the
-GEMM kernel behind ``quant_matmul(backend="pallas")``, the paged posit
-KV cache, the continuous-batching ``Engine``, ``traffic``, ``study``),
-and ``interop`` (words, pivots, quires, the reference's model params).
+``core.policy`` (the straight-through codec on the encode and decode
+kernels), ``configs`` (the ten architectures, shape cells, smoke and
+tiny configs), ``models`` (every family's training forward with the
+chunked cross-entropy and remat, prefill and decode step, one dict per
+layer; the flash attention's and the grouped GEMM's hand-written VJPs),
+``serving`` (``quantize`` with the GEMM kernel behind
+``quant_matmul(backend="pallas")``, the paged posit KV cache, the
+continuous-batching ``Engine``, ``traffic``, ``study``), training
+(``optim``: AdamW with p16e1 moments; ``data``: the seeded synthetic
+batches; ``launch``: the train, compressed data-parallel train, prefill
+and serve steps, the p16e1-compressed gradient sum over a ``dist`` grid
+and the ``python -m repro_torch.launch.train`` CLI), ``tree`` (the
+param/state trees) and ``interop`` (words, pivots, quires, the
+reference's model params, gradients and training state both ways).
 
-Not yet ported (ROADMAP.md, queue A): training and launch (A13:
-``forward_train`` and the chunked cross-entropy, the attention and
-grouped-GEMM VJPs, the policy's straight-through gradient,
-``optim``, ``data``, ``launch/{train,steps,mesh,sharding,context,
-dryrun,collectives}``, ``moe_apply_ep`` and the vocab-parallel embedding)
-and the port's benches (A14).  Never to be ported: ``launch/compat.py``
-and ``launch/hlo_analysis.py``, which work on jax internals and XLA HLO
-text.
+Not yet ported (ROADMAP.md, queue A): the sharded half of launch (A13b:
+``launch/{sharding,mesh,context,dryrun}``, ``moe_apply_ep`` and the
+vocab-parallel embedding) and the port's benches (A14).  Never to be
+ported: ``launch/compat.py`` and ``launch/hlo_analysis.py``, which work
+on jax internals and XLA HLO text.
 
 Functions that take tensors run where the tensors live; entry points that
 build tensors take ``device="cuda"`` by default and raise when no GPU is

@@ -7,10 +7,13 @@ Writes go to a temp dir and are atomically renamed, so a crash mid-save
 never corrupts the latest checkpoint.  ``keep_last`` old steps are
 garbage-collected after a successful save.
 
-A tree is nested dicts, lists and tuples (``None`` holds no leaf) of
-leaves — torch tensors (any device), numpy arrays or scalars — flattened
-in the reference's order (dict keys sorted), its structure written to the
-manifest in the reference's ``PyTreeDef(...)`` notation.  Restore returns
+A tree is nested dicts, lists and tuples (``None`` and a param's
+``Axes`` names hold no leaf, as in the reference) of leaves — torch
+tensors (any device), numpy arrays or scalars — flattened in the
+reference's order (dict keys sorted), its structure written to the
+manifest in the reference's ``PyTreeDef(...)`` notation.  A training
+state goes through ``interop.train_state_to_reference`` first, so that
+it is stacked as the reference's.  Restore returns
 numpy arrays in the structure of ``tree_like`` and refuses a leaf whose
 shape, dtype or hash does not match: posit words are int32 and quire
 limb planes int64, and a silent cast would corrupt bit-exact state.
@@ -25,43 +28,23 @@ import shutil
 import numpy as np
 import torch
 
+from repro_torch.tree import flatten, unflatten
+
 __all__ = ["save_checkpoint", "latest_step", "restore_checkpoint"]
 
 
-def _flatten(tree):
-    """(leaves, structure string) in the reference's order."""
-    leaves = []
+def _any(leaf) -> bool:
+    return True
 
-    def walk(t):
-        if t is None:
-            return "None"
-        if isinstance(t, dict):
-            return "{" + ", ".join(f"{k!r}: {walk(t[k])}"
-                                   for k in sorted(t)) + "}"
-        if isinstance(t, (list, tuple)):
-            parts = [walk(v) for v in t]
-            if isinstance(t, list):
-                return "[" + ", ".join(parts) + "]"
-            return "(" + ", ".join(parts) + ("," if len(parts) == 1 else "")\
-                + ")"
-        leaves.append(t)
-        return "*"
-    spec = walk(tree)
-    return leaves, f"PyTreeDef({spec})"
+
+def _flatten(tree):
+    """(leaves, structure string) in the reference's order; every value
+    that is not a node is a leaf."""
+    return flatten(tree, _any)
 
 
 def _unflatten(like, leaves):
-    it = iter(leaves)
-
-    def build(t):
-        if t is None:
-            return None
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(v) for v in t)
-        return next(it)
-    return build(like)
+    return unflatten(like, leaves, _any)
 
 
 def _to_numpy(leaf) -> np.ndarray:

@@ -30,6 +30,16 @@ from repro_torch.dist.grid import Grid
 from repro_torch.obs import metrics as _obs_metrics
 
 
+# Moved bytes for bytes under a dtype the backends carry: neither gloo
+# nor NCCL has int16, so p16e1 words travel as the float16 of their bits
+# (the exchanges only copy).
+_CARRIED = {torch.int16: torch.float16}
+
+
+def _carry(x: torch.Tensor) -> torch.Tensor:
+    return x.view(_CARRIED[x.dtype]) if x.dtype in _CARRIED else x
+
+
 def _stage_in(x: torch.Tensor, grid: Grid) -> torch.Tensor:
     x = x.contiguous()
     if not grid.host_staging:
@@ -51,11 +61,11 @@ def _stage_out(y: torch.Tensor, grid: Grid, kind: str) -> torch.Tensor:
 def all_gather(x: torch.Tensor, grid: Grid, axis: str) -> torch.Tensor:
     """(g, *x.shape): every rank's ``x`` along ``axis``, stacked in grid
     order (``jax.lax.all_gather(..., tiled=False)``)."""
-    xs = _stage_in(x, grid)
+    xs = _carry(_stage_in(x, grid))
     parts = [torch.empty_like(xs) for _ in range(grid.axis_size(axis))]
     with grid.timed("collective"):
         dist.all_gather(parts, xs, group=grid.groups[axis])
-    return _stage_out(torch.stack(parts), grid, "all-gather")
+    return _stage_out(torch.stack(parts).view(x.dtype), grid, "all-gather")
 
 
 def psum(x: torch.Tensor, grid: Grid, axis: str) -> torch.Tensor:
@@ -76,12 +86,12 @@ def _exchange(x: torch.Tensor, grid: Grid, axis: str, dim: int):
     if x.shape[dim] % g:
         raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
                          f"into {g} chunks")
-    xs = _stage_in(x.movedim(dim, 0), grid)
+    xs = _carry(_stage_in(x.movedim(dim, 0), grid))
     xs = xs.reshape((g, xs.shape[0] // g) + tuple(xs.shape[1:]))
     got = torch.empty_like(xs)
     with grid.timed("collective"):
         dist.all_to_all_single(got, xs, group=grid.groups[axis])
-    return got
+    return got.view(x.dtype)
 
 
 def psum_scatter(x: torch.Tensor, grid: Grid, axis: str,

@@ -82,6 +82,10 @@ class Grid:
     def axis_size(self, axis: str) -> int:
         return {"row": self.p, "col": self.q, "all": self.p * self.q}[axis]
 
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
+        return {"row": self.r, "col": self.c, "all": self.rank}[axis]
+
     @contextlib.contextmanager
     def counting(self, op: str):
         """Collectives inside count their result bytes as

@@ -11,7 +11,13 @@ do) or a result of one can be loaded into the other.
 ``params_from_reference`` loads the reference's model param tree (its
 leaves turned into numpy arrays, e.g. ``jax.tree.map(np.asarray, p)``)
 into the port's layout: one dict per layer where the reference stacks
-each period slot along a leading axis.
+each period slot along a leading axis; ``params_to_reference`` stacks
+them back.  Any tree in the params' structure goes the same way (the
+gradients, the AdamW moments: ``opt_state_from_reference``), and
+``train_state_to_reference`` / ``train_state_from_reference`` carry a
+whole training state (params, AdamW state), which is what the
+checkpoints of ``launch.train`` hold: the reference's layout, so a
+checkpoint of either package restores in the other.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch import _device
+from repro_torch import tree as _tree
 from repro_torch.models.common import ArchConfig, Axes
 from repro_torch.models.lm import period_of
 from repro_torch.quire import Quire
@@ -138,3 +145,66 @@ def params_from_reference(tree, cfg: ArchConfig, device="cuda") -> dict:
                        for i in range(cfg.enc_layers)],
             "final_norm": _tree_to_torch(enc["final_norm"], dev)}
     return out
+
+
+def tree_to_numpy(tree):
+    """A port tree (params, gradients, optimizer state) with every tensor
+    turned into a numpy array; names and other leaves kept."""
+    return _tree.map(lambda t: t.detach().cpu().numpy(), tree)
+
+
+def _stack(trees):
+    """Trees of one structure -> one tree whose arrays are theirs stacked
+    along a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: first[k] if k in _NAME_KEYS else
+                _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return [_stack([t[i] for t in trees]) for i in range(len(first))]
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def params_to_reference(tree, cfg: ArchConfig) -> dict:
+    """A tree in the port's params layout (params, gradients, moments;
+    tensors or numpy) -> the reference's, numpy: layer ``i`` goes to slot
+    ``i % period`` at stack index ``i // period``, the encoder's layers
+    are stacked, the rest carries over."""
+    tree = tree_to_numpy(tree)
+    per = period_of(cfg)
+    out = {k: v for k, v in tree.items() if k not in ("layers", "enc")}
+    out["layers"] = [_stack(tree["layers"][j::per]) for j in range(per)]
+    if "enc" in tree:
+        enc = tree["enc"]
+        out["enc"] = {"pos": enc["pos"], "layers": _stack(enc["layers"]),
+                      "final_norm": enc["final_norm"]}
+    return out
+
+
+def opt_state_from_reference(state, cfg: ArchConfig, device="cuda") -> dict:
+    """The reference's AdamW state (numpy leaves: f32 or int16 moments,
+    the 0-d int32 step) -> the port's on ``device``."""
+    step = np.asarray(state["step"])
+    if step.dtype != np.int32 or step.shape != ():
+        raise TypeError(f"the step must be a 0-d int32, got {step.dtype} "
+                        f"{step.shape}")
+    return {"moments": params_from_reference(state["moments"], cfg, device),
+            "step": torch.from_numpy(np.array(step)).to(
+                _device.resolve(device))}
+
+
+def train_state_to_reference(params, opt_state, cfg: ArchConfig) -> tuple:
+    """(params, AdamW state) of the port -> the reference's layout, numpy
+    (what ``save_checkpoint`` writes and ``restore_checkpoint`` takes as
+    its ``tree_like``)."""
+    return (params_to_reference(params, cfg),
+            {"moments": params_to_reference(opt_state["moments"], cfg),
+             "step": tree_to_numpy(opt_state["step"])})
+
+
+def train_state_from_reference(state, cfg: ArchConfig, device="cuda"
+                               ) -> tuple:
+    """The reverse of ``train_state_to_reference``."""
+    params, opt_state = state
+    return (params_from_reference(params, cfg, device),
+            opt_state_from_reference(opt_state, cfg, device))

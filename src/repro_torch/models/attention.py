@@ -1,6 +1,6 @@
 """Blockwise (flash-style) attention: GQA, causal, sliding-window, cross,
 and ring-buffer KV-cache decode (counterpart of
-``repro.models.attention``, forward only).
+``repro.models.attention``).
 
 The reference's attention is plain XLA, not a Pallas kernel, so this is
 plain PyTorch: the prefill path keeps the reference's running (max, sum,
@@ -8,7 +8,15 @@ acc) statistics over kv chunks, so the S x S score matrix is never
 materialized, and the decode path is one masked softmax over the cache.
 Masked scores are the reference's ``-1e30`` in f32, not ``-inf``: a row
 with no visible slot averages the values as the reference's does instead
-of giving NaN.  The reference's hand-written VJP comes with training.
+of giving NaN.
+
+The prefill path is ``_Flash``, with the reference's hand-written VJP:
+the forward saves only (q, k, v, out, lse), and the backward rescans
+the kv chunks and recomputes the probabilities, with the reference's
+casts (``p``, ``ds`` and ``dout`` to the compute dtype before each
+product, products summed in f32, ``dq`` accumulated in f32, ``dk``/``dv``
+in the cache dtype).  Where no gradient is wanted, as in serving, the
+scan runs outside ``_Flash`` and neither computes nor keeps lse.
 """
 from __future__ import annotations
 
@@ -92,19 +100,39 @@ def blockwise_attention(q, k, v, *, q_positions, causal: bool,
         chunk = next(c for c in range(chunk, 0, -1) if sk % c == 0)
     qpos = torch.as_tensor(q_positions, device=dev).to(torch.int32)
     vlen = 2 ** 30 if kv_valid_len is None else kv_valid_len
+    spec = (chunk, vlen, causal, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        out = _Flash.apply(qg, k, v, kv_positions, qpos, spec)
+    else:
+        out, _ = _flash_fwd(qg, k, v, kv_positions, qpos, spec, False)
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def _chunk_mask(qpos, pj, vlen, causal, window):
+    mask = (pj[None, :] >= 0) & (pj[None, :] < vlen)
+    if causal:
+        mask = mask & (qpos[:, None] >= pj[None, :])
+    if window:
+        mask = mask & (qpos[:, None] - pj[None, :] < window)
+    return mask                                          # (Sq, C)
+
+
+def _flash_fwd(qg, k, v, kv_positions, qpos, spec, want_lse):
+    """The kv-chunk scan: f32 (out, lse) of (B,Sq,Hkv,G,Dh) queries; lse
+    is None unless ``want_lse`` (only the backward reads it)."""
+    chunk, vlen, causal, window = spec
+    b, sq, hkv, g, dh = qg.shape
+    scale = torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32)
+    dev = qg.device
     m = torch.full((b, sq, hkv, g), _NEG, dtype=torch.float32, device=dev)
     l = torch.zeros((b, sq, hkv, g), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, sq, hkv, g, dh), dtype=torch.float32, device=dev)
-    for c0 in range(0, sk, chunk):
+    for c0 in range(0, k.shape[1], chunk):
         kj, vj = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
-        pj = kv_positions[c0:c0 + chunk]
-        s = _scores(qg, kj, scale)
-        mask = (pj[None, :] >= 0) & (pj[None, :] < vlen)
-        if causal:
-            mask = mask & (qpos[:, None] >= pj[None, :])
-        if window:
-            mask = mask & (qpos[:, None] - pj[None, :] < window)
-        s = torch.where(mask[None, :, None, None, :], s, _NEG)
+        mask = _chunk_mask(qpos, kv_positions[c0:c0 + chunk], vlen, causal,
+                           window)
+        s = torch.where(mask[None, :, None, None, :],
+                        _scores(qg, kj, scale), _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -112,8 +140,55 @@ def blockwise_attention(q, k, v, *, q_positions, causal: bool,
         acc = acc * corr[..., None] + _mix(p, vj)
         m = m_new
     l_safe = torch.clamp(l, min=1e-30)
-    out = acc / l_safe[..., None]
-    return out.reshape(b, sq, hq, dh).to(q.dtype)
+    return (acc / l_safe[..., None],
+            m + torch.log(l_safe) if want_lse else None)
+
+
+def _f32(a, dt):
+    """``a`` rounded to ``dt``, then widened: the operand of a product
+    summed in f32."""
+    return a.to(dt).float()
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the reference's hand-written VJP."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, kv_positions, qpos, spec):
+        out, lse = _flash_fwd(qg, k, v, kv_positions, qpos, spec, True)
+        ctx.save_for_backward(qg, k, v, kv_positions, qpos, out, lse)
+        ctx.spec = spec
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, kv_positions, qpos, out, lse = ctx.saved_tensors
+        chunk, vlen, causal, window = ctx.spec
+        dh = qg.shape[-1]
+        scale = torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32)
+        dt = qg.dtype
+        dout = dout.float()
+        delta = (dout * out).sum(dim=-1)                 # (B,Sq,Hkv,G)
+        do_dt = _f32(dout, dt)
+        qf = qg.float()
+        dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
+        dks, dvs = [], []
+        for c0 in range(0, k.shape[1], chunk):
+            kj, vj = k[:, c0:c0 + chunk], v[:, c0:c0 + chunk]
+            mask = _chunk_mask(qpos, kv_positions[c0:c0 + chunk], vlen,
+                               causal, window)
+            s = _scores(qg, kj, scale)
+            p = torch.where(mask[None, :, None, None, :],
+                            torch.exp(s - lse[..., None]), 0.0)
+            dvj = torch.einsum("bshgc,bshgd->bchd", _f32(p, dt), do_dt)
+            dp = torch.einsum("bshgd,bchd->bshgc", do_dt, vj.float())
+            ds = _f32(p * (dp - delta[..., None]) * scale, dt)
+            dq = dq + torch.einsum("bshgc,bchd->bshgd", ds, kj.float())
+            dkj = torch.einsum("bshgc,bshgd->bchd", ds, qf)
+            dks.append(dkj.to(k.dtype))
+            dvs.append(dvj.to(v.dtype))
+        return (dq.to(dt), torch.cat(dks, dim=1), torch.cat(dvs, dim=1),
+                None, None, None)
 
 
 def attn_apply(params, x, cfg: ArchConfig, policy, compute_dtype, *,

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch import _device
 from repro_torch.core.policy import Policy, get_policy
+from repro_torch.tree import Axes  # noqa: F401  (re-exported)
 
 
 # --------------------------------------------------------------------------
@@ -111,11 +112,6 @@ class ArchConfig:
 # --------------------------------------------------------------------------
 # param helpers
 # --------------------------------------------------------------------------
-
-class Axes(tuple):
-    """Logical axis names of a param leaf (the reference's ``Axes``, a
-    pytree node without leaves there; names only here)."""
-
 
 class Rng:
     """The port's seeded initializer: one ``torch.Generator`` on the
@@ -210,11 +206,16 @@ def linear_init(rng, d_in, d_out, axes, bias=False, scale=1.0):
 
 
 def linear(params, x, policy: Policy, compute_dtype):
-    """Policy-aware dense layer.  A posit-quantized weight leaf goes
-    through ``serving.quantize.quant_matmul`` (its backend decides:
-    decoded f32 ``torch.matmul``, or the Hopper posit GEMM kernel on the
-    words); the policy's weight/activation rounding does not stack on
-    top, the leaf is the lattice."""
+    """Policy-aware dense layer: the policy's weight and activation
+    rounding (``core.policy.quantize``, straight-through under autograd),
+    then a product summed in f32 whose output is rounded to the compute
+    dtype, in training as in prefill (the reference's training output;
+    its ``DistContext.f32_partials`` belongs to the sharded launch layer,
+    not ported).  A posit-quantized weight leaf goes through
+    ``serving.quantize.quant_matmul`` (its backend decides: decoded f32
+    ``torch.matmul``, or the Hopper posit GEMM kernel on the words); the
+    policy's weight/activation rounding does not stack on top, the leaf
+    is the lattice."""
     if is_qleaf(params["w"]):
         from repro_torch.serving.quantize import quant_matmul
         y = quant_matmul(x, params["w"], compute_dtype)

@@ -1,9 +1,10 @@
 """Dense FFN (SwiGLU/GELU) and MoE with sort-based grouped dispatch
-(counterpart of ``repro.models.ffn``, single device, forward only).
+(counterpart of ``repro.models.ffn``, single device).
 
 The reference's grouped GEMM is ``jax.lax.ragged_dot`` (an XLA op, no
 Pallas kernel): here it is one f32-accumulated matmul per expert over
-that expert's contiguous rows of the expert-sorted token list.  The
+that expert's contiguous rows of the expert-sorted token list, with
+the reference's hand-written VJP (``_GroupedMM``).  The
 routed outputs are summed per token in the order the reference's
 scatter-add meets them (ascending expert id), starting from zero.  The
 expert-parallel form (``moe_apply_ep``, an all_to_all dispatch) comes
@@ -37,10 +38,7 @@ def ffn_apply(params, x, cfg: ArchConfig, policy, compute_dtype):
     return linear(params["w_down"], h, policy, compute_dtype)
 
 
-def _grouped_mm(x, w, group_sizes):
-    """(T, d) @ (E, d, f) -> f32 (T, f): rows of x grouped by expert in
-    ``group_sizes`` (host ints summing to T), each group against its
-    expert's matrix, products summed in f32."""
+def _grouped_forward(x, w, group_sizes):
     out = x.new_zeros((x.shape[0], w.shape[-1]), dtype=torch.float32)
     start = 0
     for e, n in enumerate(group_sizes):
@@ -49,6 +47,41 @@ def _grouped_mm(x, w, group_sizes):
                 x[start:start + n].float(), w[e].float())
         start += n
     return out
+
+
+class _GroupedMM(torch.autograd.Function):
+    """The grouped GEMM with the reference's hand-written VJP: ``dx`` is
+    ``dy @ w[e]^T`` per group, ``dw[e]`` is ``x_g^T @ dy_g`` (zero for an
+    empty group), both summed in f32 and cast back to their primal's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w)
+        ctx.group_sizes = group_sizes
+        return _grouped_forward(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy32 = dy.float()
+        dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        start = 0
+        for e, n in enumerate(ctx.group_sizes):
+            if n:
+                rows = slice(start, start + n)
+                dx[rows] = torch.matmul(dy32[rows], w[e].float().T)
+                dw[e] = torch.matmul(x[rows].float().T, dy32[rows])
+            start += n
+        return dx.to(x.dtype), dw.to(w.dtype), None
+
+
+def _grouped_mm(x, w, group_sizes):
+    """(T, d) @ (E, d, f) -> f32 (T, f): rows of x grouped by expert in
+    ``group_sizes`` (host ints summing to T), each group against its
+    expert's matrix, products summed in f32."""
+    return _GroupedMM.apply(x, w, group_sizes)
 
 
 def moe_init(rng, cfg: ArchConfig):

@@ -1,5 +1,5 @@
 """Model assembly for all architecture families (counterpart of
-``repro.models.lm``, inference only).
+``repro.models.lm``).
 
 families: dense | moe (dense attn + MoE FFN) | ssm (pure Mamba2) |
 hybrid (Mamba2 + weight-shared attention block, Zamba2-style) |
@@ -18,20 +18,27 @@ per layer too: ``cache["layers"][i]`` ({"kv": {"k", "v"}} or {"ssm":
 
 Public surface:
     init_params(key, cfg, device)            -> param tree
+    forward_train(params, batch, cfg, remat) -> (loss, metrics)
     forward_prefill(params, batch, cfg)      -> last-position logits
     init_cache(cfg, batch, seq_len, ...)     -> decode cache
     serve_step(params, cache, tok, pos, cfg) -> (logits, cache)
 
 Modality frontends are stubs as in the reference: batches carry
 precomputed frame/patch embeddings ("frames" / "vis") at d_model.
-Training (``forward_train``, the chunked cross-entropy, remat) is not
-ported yet.
+
+Training: the loss is the reference's chunked cross-entropy, each
+chunk's logits recomputed in the backward (``torch.utils.checkpoint``),
+so the (tokens, vocab) logits are never live at full size.  ``remat``
+checkpoints each layer (the reference checkpoints its scanned period
+bodies): the backward recomputes a layer's activations from its input,
+and the loss is the same as without.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import _device
 from repro_torch.core.policy import torch_dtype
@@ -170,7 +177,7 @@ def _logits(params, x, cfg, dtype):
     return dot_f32(x, leaf(params["unembed"]["w"]), dtype)
 
 
-def _backbone(params, batch, cfg: ArchConfig):
+def _backbone(params, batch, cfg: ArchConfig, remat: bool = False):
     policy, dtype = _dtype(cfg)
     x = embed(params["embed"], batch["tokens"], dtype)
 
@@ -187,19 +194,28 @@ def _backbone(params, batch, cfg: ArchConfig):
     kinds = cfg.layer_kinds()
     shared = params.get("shared_attn")
     per = period_of(cfg)
-    aux_total = 0.0
-    for i, lp in enumerate(params["layers"]):
+
+    def layer(x, i):
+        lp = params["layers"][i]
         ck = None
         if cfg.family == "encdec":
             ck = attn_mod.cross_kv_init(lp["xattn"], enc_out, cfg, policy,
                                         dtype)
         x, _, a = _block(lp, x, cfg, policy, dtype, kinds[i],
                          positions=positions, cross_kv=ck)
-        aux_total = aux_total + a
         if cfg.family == "hybrid" and shared is not None \
                 and (i + 1) % per == 0:
             x, _, _ = _block(shared, x, cfg, policy, dtype, "shared",
                              positions=positions)
+        return x, a
+
+    aux_total = 0.0
+    for i in range(len(params["layers"])):
+        if remat:
+            x, a = checkpoint(layer, x, i, use_reentrant=False)
+        else:
+            x, a = layer(x, i)
+        aux_total = aux_total + a
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if n_vis:
@@ -214,6 +230,46 @@ def forward_prefill(params, batch, cfg: ArchConfig):
     _, dtype = _dtype(cfg)
     x, _ = _backbone(params, batch, cfg)
     return _logits(params, x[:, -1:, :], cfg, dtype)[:, 0, :]
+
+
+def _chunked_ce(params, x, targets, cfg, dtype, max_chunk_elems=2 ** 26):
+    """Cross-entropy over sequence chunks of at most ``max_chunk_elems //
+    vocab`` tokens (the largest divisor of S below that), each chunk's
+    f32 logits recomputed in the backward.  Returns (mean loss over the
+    targets >= 0, their count), both f32."""
+    b, s, _ = x.shape
+    chunk = max(min(s, max_chunk_elems // max(cfg.vocab, 1)), 1)
+    while s % chunk:
+        chunk -= 1
+
+    def body(xx, tt):
+        logits = _logits(params, xx, cfg, dtype)            # (B,c,V) f32
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tt[..., None].long().clamp(min=0)
+                            )[..., 0]
+        mask = (tt >= 0).to(torch.float32)
+        return torch.sum((logz - gold) * mask), mask.sum()
+
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, s, chunk):
+        part, n = checkpoint(body, x[:, c0:c0 + chunk],
+                             targets[:, c0:c0 + chunk], use_reentrant=False)
+        tot, cnt = tot + part, cnt + n
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def forward_train(params, batch, cfg: ArchConfig, remat: bool = False):
+    """Mean next-token cross-entropy of ``batch`` ({"tokens", "targets":
+    (B, S) ints; "frames" (encdec) / "vis" (vlm)}), plus ``0.01 * aux /
+    n_layers`` of the MoE load-balance loss.  Returns (loss, {"loss",
+    "ntokens"})."""
+    _, dtype = _dtype(cfg)
+    x, aux_total = _backbone(params, batch, cfg, remat=remat)
+    loss, ntok = _chunked_ce(params, x, batch["targets"], cfg, dtype)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux_total / cfg.n_layers
+    return loss, {"loss": loss, "ntokens": ntok}
 
 
 # --------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Mamba2 / SSD (state-space duality) block (counterpart of
-``repro.models.ssm``, forward only).
+``repro.models.ssm``).
 
 Chunked SSD: within a chunk the recurrence is computed in its attention
 dual form (C B^T with a decay mask, quadratic in the chunk length);
 across chunks a linear state recurrence runs, here as a Python loop over
 the chunks where the reference scans.  The intra-chunk decay is masked
-with ``-inf`` before the ``exp``, as in the reference.
+with ``-inf`` before the ``exp``, as in the reference; autograd takes
+the training gradient through it, as ``jax.grad`` does the reference's.
 
 Decode carries a small recurrent cache: the conv tail (k-1 steps) and the
 SSM state (B, H, N, P), constant in sequence length.

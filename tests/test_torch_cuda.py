@@ -617,3 +617,104 @@ def test_cuda_skinny_kernel_equals_tiled_chain(cuda_device, fmt):
             assert torch.equal(g[~g.isnan()].view(torch.int32),
                                h[~h.isnan()].view(torch.int32)), (k, n, m)
             assert not g.isnan().all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", FMTS)
+def test_cuda_policy_codec_on_the_kernels(cuda_device, name):
+    """``decode_tensor``, ``encode_tensor`` and ``quantize`` on the card:
+    one decode / encode kernel launch each, values and words equal to the
+    plain codec on a stride sweep of the words (every p32e2 word near
+    zero, the tiny words below the decode pair's range included) and on
+    the f32 corners, the straight-through gradient the identity."""
+    from repro_torch.core import policy as TPOL
+    fmt = TF.FORMATS[name]
+    wire = TPOL.wire_dtype(fmt)
+    if fmt.nbits <= 16:
+        w = torch.arange(-(1 << (fmt.nbits - 1)), 1 << (fmt.nbits - 1),
+                         dtype=torch.int32)
+    else:
+        w = torch.cat([torch.arange(-5000, 5000, dtype=torch.int32),
+                       torch.arange(-2 ** 31, 2 ** 31 - 1, 65537,
+                                    dtype=torch.int32)])
+    TG.reset_launch_counts()
+    got = TPOL.decode_tensor(w.to(wire).to(cuda_device), fmt)
+    assert TG.launch_counts()["decode_split_f32"] == 1
+    want = TP.to_float32_bits(w, fmt)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got.cpu()), nan)
+    assert torch.equal(got.cpu()[~nan].view(torch.int32),
+                       want[~nan].view(torch.int32))
+    x = torch.from_numpy(ti.f32_corners())
+    TG.reset_launch_counts()
+    words = TPOL.encode_tensor(x.to(cuda_device), fmt)
+    assert TG.launch_counts()["encode_posit_f32"] == 1
+    assert words.dtype == wire
+    assert torch.equal(words.cpu(), TP.from_float32_bits(x, fmt).to(wire))
+    xf = x[torch.isfinite(x)].to(cuda_device).requires_grad_(True)
+    TG.reset_launch_counts()
+    q = TPOL.quantize(xf, fmt)
+    counts = TG.launch_counts()
+    assert counts["encode_posit_f32"] == counts["decode_split_f32"] == 1
+    want_q = TP.to_float32_bits(TP.from_float32_bits(xf.detach().cpu(), fmt),
+                                fmt)
+    assert torch.equal(q.detach().cpu().view(torch.int32),
+                       want_q.view(torch.int32))
+    g = torch.randn(xf.shape, device=cuda_device)
+    q.backward(g)
+    assert torch.equal(xf.grad, g)
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_device):
+    """One tiny qwen2 ``make_train_step`` (posit32: every linear's
+    weights and activations through the codec kernels) on the card and
+    on the CPU from the same params and batch: loss, params and moments
+    within 1e-5 relative (all leaves as one vector)."""
+    from repro_torch import tree
+    from repro_torch.configs import ShapeCell, get_tiny_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    cfg = get_tiny_config("qwen2-0.5b", policy="posit32")
+    outs = []
+    TG.reset_launch_counts()
+    for dev in ("cpu", cuda_device):
+        p = init_params(0, cfg, device="cpu")
+        p = tree.map(lambda t, d=dev: t.to(d), p)
+        batch = make_batch(cfg, ShapeCell("e2e", "train", 8, 2), 0,
+                           device=dev)
+        outs.append(make_train_step(cfg, remat=False, lr=1e-3)(
+            p, adamw_init(p), batch))
+    assert TG.launch_counts()["encode_posit_f32"] > 0
+    (cp, co, cm), (gp, go, gm) = outs
+
+    def rel(a, b):
+        a = torch.cat([t.detach().cpu().double().ravel() for t in a])
+        b = torch.cat([t.detach().double().ravel() for t in b])
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+    assert abs(float(gm["loss"]) - float(cm["loss"])) <= 1e-5 * float(
+        cm["loss"])
+    assert rel(tree.leaves(gp), tree.leaves(cp)) < 1e-5
+    assert rel(tree.leaves(go["moments"]), tree.leaves(co["moments"])) < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_train_cli(cuda_device, tmp_path):
+    """``python -m repro_torch.launch.train --smoke --steps 3`` runs on
+    the card by default and prints finite losses."""
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--smoke", "--steps", "3", "--batch", "2",
+                          "--seq", "16"], capture_output=True, text=True,
+                         timeout=600, env=env, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    import re
+    losses = [float(v) for v in re.findall(r"loss (\S+)",
+                                           out.stdout.splitlines()[-1])]
+    assert len(losses) == 2 and np.all(np.isfinite(losses)), out.stdout

@@ -397,8 +397,9 @@ def test_float32_conversions_match_jax(name):
 
 
 def test_port_imports_no_jax():
-    """repro_torch, its kernels, the quire, the refinement drivers and
-    chip_smoke.py import neither jax nor the JAX package."""
+    """repro_torch, its kernels, the quire, the refinement drivers, the
+    training launch, optimizer and data, and chip_smoke.py import neither
+    jax nor the JAX package."""
     code = textwrap.dedent("""
         import sys
         sys.path.insert(0, %r)
@@ -407,6 +408,9 @@ def test_port_imports_no_jax():
         import repro_torch.kernels._build, repro_torch.lapack
         import repro_torch.quire, repro_torch.lapack.refine
         import repro_torch.dist, repro_torch.checkpoint
+        import repro_torch.launch.train, repro_torch.launch.steps
+        import repro_torch.launch.collectives, repro_torch.optim
+        import repro_torch.data
         sys.path.insert(0, %r)
         import chip_smoke
         bad = sorted(m for m in sys.modules

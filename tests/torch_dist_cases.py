@@ -14,6 +14,8 @@ bit-identical across them).
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -216,3 +218,83 @@ def card_rgetrf(grid, n: int, nb: int, seed: int = 0):
     launches = pg.launch_counts()
     return {"lu": _np(lu.gather()), "ipiv": _np(ipiv),
             "launches": launches}
+
+
+def dp_cases(p: int, seed: int = 10) -> dict:
+    """Operands of ``compressed_sums`` for ``p`` ranks: (p, ...) f32
+    arrays, row r rank r's (the reference's (p, 1024) test case, a length
+    padded to a multiple of p, a matrix of small gradients)."""
+    rng = np.random.default_rng(seed + p)
+    return {"vec": (rng.standard_normal((p, 1024)) * 0.03).astype(
+                np.float32),
+            "pad": (rng.standard_normal((p, 4999)) * 0.03).astype(
+                np.float32),
+            "mat": (rng.standard_normal((p, 64, 96)) * 3e-4).astype(
+                np.float32)}
+
+
+def compressed_sums(grid, axes=("all",), seed: int = 10) -> dict:
+    """``launch.collectives.compressed_psum`` of ``dp_cases`` over each
+    axis of ``axes``: the sums and the bytes each sum's collectives
+    counted, by "<axis>.<case>"."""
+    from repro_torch.launch.collectives import compressed_psum
+    sums = {}
+    with obs.scoped() as m:
+        for axis in axes:
+            me = grid.axis_index(axis)
+            for name, x in dp_cases(grid.axis_size(axis), seed).items():
+                xt = torch.from_numpy(np.array(x[me])).to(grid.device)
+                with grid.counting(f"cpsum.{axis}.{name}"):
+                    sums[f"{axis}.{name}"] = _np(
+                        compressed_psum(xt, grid, axis))
+        counters = {k: v for k, v in m.to_dict()["counters"].items()
+                    if k.startswith("dist.")}
+    return {"rank": grid.rank, "sums": sums, "counters": counters}
+
+
+def train_dp(grid, run: dict, axis: str = "all",
+             sum_axes: tuple = ()) -> dict:
+    """``steps`` steps of ``launch.steps.make_train_step_compressed`` over
+    ``axis`` of ``grid`` (``run``: arch, policy, steps, batch, seq, lr,
+    seed; the smoke config), each rank on its shard of the global batch:
+    the losses and grad norms, the ``dist.*`` bytes of the gradient sums
+    (counted as ``dist.grads``), the compressed leaves' element count,
+    and this rank's params after the last step.  With ``sum_axes``, also
+    ``compressed_sums`` over them."""
+    import dataclasses
+    from repro_torch import tree
+    from repro_torch.configs import ShapeCell, get_smoke_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import make_train_step_compressed
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    cfg = dataclasses.replace(get_smoke_config(run["arch"]),
+                              policy=run["policy"])
+    dev = grid.device
+    params = init_params(run["seed"], cfg, device=dev)
+    opt = adamw_init(params, cfg.get_policy().opt_compression is not None)
+    step_fn = make_train_step_compressed(cfg, grid, axis=axis, remat=False,
+                                         lr=run["lr"])
+    cell = ShapeCell("e2e", "train", run["seq"], run["batch"])
+    losses, gnorms, step_s = [], [], []
+    with obs.scoped() as m:
+        for step in range(run["steps"]):
+            batch = make_batch(cfg, cell, step, seed=run["seed"],
+                               batch_override=run["batch"], device=dev)
+            t0 = time.perf_counter()
+            with grid.counting("grads"):
+                params, opt, metrics = step_fn(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t0)
+            gnorms.append(float(metrics["grad_norm"]))
+        counters = {k: v for k, v in m.to_dict()["counters"].items()
+                    if k.startswith("dist.")}
+    compressed = sum(w.numel() for w in tree.leaves(params)
+                     if w.numel() >= 1 << 12)
+    out = {"rank": grid.rank, "losses": losses, "grad_norms": gnorms,
+           "step_s": step_s, "counters": counters,
+           "compressed_elems": compressed,
+           "params": [_np(w) for w in tree.leaves(params)]}
+    if sum_axes:
+        out["cases"] = compressed_sums(grid, sum_axes)
+    return out
