@@ -53,7 +53,11 @@ bf16_opt16 with p16e1 AdamW moments on the same kernels; ``[train
 parity]``: the tiny configs' losses, gradients and train steps card vs
 CPU; ``[train resume]``: a killed and resumed run against a straight
 one; ``[train dp]``: two ranks on the card, the p16e1-compressed
-gradient sum against one process), and times the
+gradient sum against one process; ``[train sharded]``: the sharded
+``make_train_step`` of qwen2-0.5b at its published widths on a 2x2
+("data", "model") mesh of four ranks sharing the card and on one NCCL
+rank, against one process and the dry run's collective plan, and the
+expert-parallel MoE against the local path), and times the
 kernels: the tiled kernel and the simple one interleaved,
 the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks, the whole
 ``rgemm`` trailing-update call and its ``quire_exact`` form, and the
@@ -69,8 +73,9 @@ serving for the skinny GEMM and the encode kernel, training for the
 decode kernel);
 ``launches_by_path``: on the §5.1 main path and on the refinement, QR, ensemble,
 golden-zone, protected (``ft``), distributed (``dist``, every rank's),
-serving (``serve``: both replays of ``[serve]``) and training
-(``train``: both runs of ``[train]``) paths, each counted
+serving (``serve``: both replays of ``[serve]``), training
+(``train``: both runs of ``[train]``) and sharded training
+(``train_sharded``: the 2x2 ranks' steps, summed) paths, each counted
 from zero around its own run; ``on_main_path``:
 launched on one of them; error, times and bound).
 
@@ -268,7 +273,8 @@ ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
            "ft": ("posit_gemm_f32", "posit_gemm", "decode_planes"),
            "dist": ("posit_gemm_f32", "decode_planes"),
            "serve": ("quant_gemm_f32", "encode_posit_f32"),
-           "train": ("encode_posit_f32", "decode_split_f32")}
+           "train": ("encode_posit_f32", "decode_split_f32"),
+           "train_sharded": ("encode_posit_f32", "decode_split_f32")}
 
 # [train]: qwen2-0.5b at its published widths through launch.train.run,
 # TRAIN_STEPS steps per policy at TRAIN_RUN; [train parity]: the tiny
@@ -284,6 +290,16 @@ TRAIN_RESUME = dict(steps=6, batch=2, seq=16, policy="bf16_opt16")
 TRAIN_DP = dict(arch="qwen2-0.5b", policy="posit_dp", steps=3, batch=4,
                 seq=16, lr=1e-3, seed=0)
 TRAIN_DP_RTOL = 1e-3         # the p16e1 wire's noise (8e-5 on the CPU)
+# [train sharded]: qwen2-0.5b at its published widths (vocab-parallel
+# embedding: 75968 table rows a rank) on a 2x2 ("data", "model") mesh of
+# four ranks sharing the card (gloo on host copies), then on one NCCL rank
+# (a 1x1 mesh); the granite-moe smoke config's expert parallelism on the
+# same 2x2 ranks.
+TRAIN_SHARDED = dict(arch="qwen2-0.5b", policy="posit32", batch=4, seq=64,
+                     steps=2, lr=1e-3, seed=0)
+TRAIN_SHARDED_RTOL = 1e-5    # f32 compute: the sharded sum orders
+TRAIN_SHARDED_CODEC = 336    # 168 linears' weights and activations a step
+EP_RTOL, EP_GRAD_RTOL = 1e-6, 1e-5
 
 
 def say(*parts):
@@ -2413,6 +2429,13 @@ def rel_err(got, want) -> float:
     return float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
 
 
+def np_rel(got, want) -> float:
+    """``rel_err`` of two numpy arrays."""
+    import numpy as np
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
 def phase_models(dev, smi):
     """Each family's tiny model (policy f32) on the card against the same
     port on the CPU from the same seeded weights: the prefill forward's
@@ -3283,6 +3306,238 @@ def phase_train_dp(dev, smi):
                 step_s=res[0]["step_s"])
 
 
+def train_sharded_rank(grid, run, ep_path=None, go=None):
+    """One rank of ``[train sharded]``: ``run['steps']`` steps of the
+    sharded ``make_train_step`` of ``run['arch']`` at its published widths
+    on the grid's ("data", "model") mesh, from the seeded full params and
+    batches every process makes alike (each rank keeps its blocks).  The
+    first step's codec calls are held to the plain codec (CodecRecorder).
+    Per step: the loss, the wall (host clock, a device sync on each side),
+    the codec launches, the collective bytes by kind and their seconds by
+    kind (a device sync around each).  Then, with ``ep_path``, the expert
+    parallelism cases of ``tests/torch_dist_cases.py`` on the card.  With
+    ``go``, the steps wait until that file exists (the rank starts up
+    while others run, and steps alone)."""
+    import torch
+    import torch_dist_cases as tdc
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.dist.grid import StageClock
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_data_model_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = grid.device
+    cfg = get_config(run["arch"], policy=run["policy"])
+    mesh = make_data_model_mesh(grid)
+    cell = ShapeCell("e2e", "train", run["seq"], run["batch"])
+    dist = shd.dist_for(cfg, cell, mesh)
+    bspecs = shd.batch_shardings(cfg, cell, mesh)
+    step = make_train_step(cfg, remat=False, lr=run["lr"], dist=dist)
+    full = init_params(run["seed"], cfg, device=dev)
+    opt = adamw_init(full, cfg.get_policy().opt_compression is not None)
+    params = step.plan.shard(full)
+    opt = shd.shard_tree(opt, shd.opt_shardings(opt, step.plan.specs, mesh),
+                         mesh)
+    table_rows = params["embed"]["table"]["w"].shape[0]
+    del full
+    while go is not None and not Path(go).exists():
+        time.sleep(0.05)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh.clock = StageClock(dev)
+    out = dict(rank=grid.rank, coords=dict(mesh.coords), seq=dist.seq,
+               dp=dist.dp, table_rows=table_rows, losses=[], step_ms=[],
+               launches=[], counts=[], secs=[])
+    rec = CodecRecorder()
+    for i in range(run["steps"]):
+        batch = shd.shard_tree(make_batch(cfg, cell, i, seed=run["seed"],
+                                          batch_override=run["batch"],
+                                          device=dev), bspecs, mesh)
+        mesh.reset_counts()
+        mesh.clock.secs = {}
+        before = pg.launch_counts()
+        if i == 0:
+            rec.open()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize(dev)
+        finally:
+            rec.close()
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["launches"].append(_train_launches(before, pg.launch_counts()))
+        out["counts"].append(dict(mesh.counts))
+        out["secs"].append(dict(mesh.clock.secs))
+        out["losses"].append(float(m["loss"]))
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["codec_calls"] = len(rec.calls)
+    out["codec_bad"] = [c for c in rec.calls if not c[3]][:4]
+    out["launch_total"] = {}
+    for c in out["launches"]:
+        for k, n in c.items():
+            out["launch_total"][k] = out["launch_total"].get(k, 0) + n
+    if ep_path is not None:
+        mesh.clock = None
+        out["ep"] = tdc.ep_cases(grid, ep_path)
+    return out
+
+
+def _sharded_one_process(dev):
+    """TRAIN_SHARDED's steps in one process on the card: the losses."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    run = TRAIN_SHARDED
+    cfg = get_config(run["arch"], policy=run["policy"])
+    cell = ShapeCell("e2e", "train", run["seq"], run["batch"])
+    params = init_params(run["seed"], cfg, device=dev)
+    opt = adamw_init(params, cfg.get_policy().opt_compression is not None)
+    step = make_train_step(cfg, remat=False, lr=run["lr"])
+    losses = []
+    for i in range(run["steps"]):
+        params, opt, m = step(params, opt, make_batch(
+            cfg, cell, i, seed=run["seed"], batch_override=run["batch"],
+            device=dev))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def phase_train_sharded(dev, smi):
+    """The sharded training step on the card (``launch.steps.
+    make_train_step`` with a ``DistContext``): four ranks sharing the card
+    (gloo on host copies) as a 2x2 ("data", "model") mesh run
+    TRAIN_SHARDED (qwen2-0.5b at its published widths, posit32: every
+    linear's gathered weights and activations on the codec kernels), then
+    one NCCL rank runs it as a 1x1 mesh (started with the four, its steps
+    after theirs).  Checks: every rank's losses
+    within TRAIN_SHARDED_RTOL of one process's on the same params and
+    batches; TRAIN_SHARDED_CODEC encode and decode launches a step on
+    every rank, the first step's codec calls equal to the plain codec;
+    the collective bytes of every step and rank by kind equal to the dry
+    run's plan (``launch.dryrun.build_step`` on an abstract 2x2 mesh,
+    computed here while the ranks run); the granite-moe smoke config's
+    ``moe_apply_ep`` on the 2x2 and 1x4 meshes against the card's local
+    path (y within EP_RTOL, the gathered gradients within EP_GRAD_RTOL).
+    Returns (report, the 2x2 ranks' codec launches, summed)."""
+    import numpy as np
+    import torch_dist_cases as tdc
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.dist import launch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import posit_gemm as pg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import Mesh
+    _build.lib()                   # the ranks load the library built here
+    run = TRAIN_SHARDED
+    cfg = get_config(run["arch"], policy=run["policy"])
+    cell = ShapeCell("e2e", "train", run["seq"], run["batch"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ep_path = Path(tmp) / "ep.npz"
+        np.savez(ep_path, **tdc.ep_inputs())
+        go = Path(tmp) / "go"
+        t0 = time.perf_counter()
+        grid = launch.spawn(train_sharded_rank, 2, 2, Path(tmp) / "grid",
+                            args=(run, str(ep_path)), backend="gloo",
+                            device="cuda", host_staging=True)
+        # the NCCL rank starts up meanwhile and steps once the grid is done
+        one = launch.spawn(train_sharded_rank, 1, 1, Path(tmp) / "nccl",
+                           args=(run, None, str(go)), backend="nccl",
+                           device="cuda:0")
+        try:                       # the plan, on the host meanwhile
+            mesh = Mesh(("data", "model"), (2, 2))
+            fn, args = dryrun.build_step(cfg, cell, mesh, remat=False,
+                                         lr=run["lr"])
+            fn(*args)
+            plan = dict(mesh.counts)
+            plan_s = time.perf_counter() - t0
+            ranks = grid.join(timeout=900)
+        except BaseException:
+            for proc in grid.procs + one.procs:
+                proc.kill()
+            raise
+        grid_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        go.touch()
+        (nccl,) = one.join(timeout=600)
+        nccl_s = time.perf_counter() - t1
+    single = _sharded_one_process(dev)
+    for r in ranks + [nccl]:
+        rel = float(np.abs(np.array(r["losses"]) / np.array(single) - 1)
+                    .max())
+        r["loss_rel"] = rel
+        check(rel < TRAIN_SHARDED_RTOL, f"[train sharded] rank {r['rank']} "
+              f"{r['coords']}: losses {r['losses']} vs one process {single}")
+        check(not r["codec_bad"] and r["codec_calls"] > 0,
+              f"[train sharded] rank {r['rank']}: codec calls differ from "
+              f"the plain codec: {r['codec_bad']}")
+        for c in r["launches"]:
+            check(c.get("encode_posit_f32") == TRAIN_SHARDED_CODEC
+                  and c.get("decode_split_f32") == TRAIN_SHARDED_CODEC,
+                  f"[train sharded] rank {r['rank']}: launches a step {c}, "
+                  f"expected {TRAIN_SHARDED_CODEC} encodes and decodes")
+    for r in ranks:
+        check(all(c == plan for c in r["counts"]),
+              f"[train sharded] rank {r['rank']} collective bytes "
+              f"{r['counts']} != the dry run's plan {plan}")
+        check(r["table_rows"] == cfg.vocab // 2 and r["seq"] == "model",
+              f"[train sharded] rank {r['rank']}: table rows "
+              f"{r['table_rows']}, seq {r['seq']}")
+    ep = {}
+    y_local, g_local = tdc.ep_local(dev)
+    for shape in tdc.MESHES:
+        for seq in tdc.EP_SEQS:
+            tag = f"{shape[0]}x{shape[1]}.{seq}"
+            y, grads = tdc.ep_assemble([r["ep"] for r in ranks], tag, shape)
+            gerr = max(np_rel(grads[k], g_local[k]) for k in grads)
+            yerr = np_rel(y, y_local)
+            check(yerr < EP_RTOL and gerr < EP_GRAD_RTOL,
+                  f"[train sharded] EP {tag}: y {yerr:.3g}, gradients "
+                  f"{gerr:.3g} from the card's local path")
+            ep[tag] = dict(y_rel=yerr, grad_rel=gerr,
+                           aux=ranks[0]["ep"][tag]["aux"])
+    counts = dict.fromkeys(pg.launch_counts(), 0)
+    for r in ranks:
+        for k, n in r["launch_total"].items():
+            counts[k] += n
+
+    def secs(r, kind):
+        return r["secs"][-1].get(kind, 0.0)
+    for r in ranks + [nccl]:
+        say(f"[train sharded] rank {r['rank']} mesh "
+            f"{'1x1 NCCL' if r is nccl else '2x2 gloo'} {r['coords']}: "
+            "losses " + ", ".join(f"{v:.6f}" for v in r["losses"])
+            + f" ({r['loss_rel']:.2e} from one process); step ms "
+            + ", ".join(f"{v:.1f}" for v in r["step_ms"])
+            + f" (the first with its codec calls checked); last step's "
+            f"all-gather {secs(r, 'all-gather'):.3f} s, reduce-scatter "
+            f"{secs(r, 'reduce-scatter'):.3f} s, all-reduce "
+            f"{secs(r, 'all-reduce'):.3f} s (device syncs around each); "
+            f"peak device memory {r['peak_bytes'] / 2**30:.3f} GiB; codec "
+            f"launches a step {json.dumps(r['launches'][-1])} [{smi}]")
+    say(f"[train sharded] {cfg.name} {run['policy']} batch {run['batch']} x "
+        f"seq {run['seq']}, {run['steps']} steps: one process's losses "
+        + ", ".join(f"{v:.6f}" for v in single)
+        + f"; collective bytes a step on every 2x2 rank {json.dumps(plan)} "
+        f"= the dry run's plan (computed in {plan_s:.1f} s on the host); "
+        f"embedding table rows a rank {ranks[0]['table_rows']}; EP "
+        + "; ".join(f"{k}: y {v['y_rel']:.2e}, grads {v['grad_rel']:.2e}, "
+                    f"aux {v['aux']:.6f}" for k, v in ep.items())
+        + f" (limits {EP_RTOL}, {EP_GRAD_RTOL}); walls: 2x2 ranks "
+        f"{grid_s:.1f} s, NCCL rank {nccl_s:.1f} s after them (started "
+        f"with them) [{smi}]")
+    return dict(single=single, plan=plan, ep=ep, grid_s=grid_s,
+                nccl_s=nccl_s, ranks=[{k: v for k, v in r.items()
+                                       if k != "ep"} for r in ranks],
+                nccl=nccl), counts
+
+
 def profile_decode_steps(engine, trace, cfg, steps=3):
     """The device's busy share over ``steps`` decode steps at full width:
     four of the trace's prompts cut to two tokens are admitted (a short
@@ -3587,6 +3842,7 @@ def main(argv=None) -> int:
     import repro_torch.dist  # noqa: F401
     import repro_torch.launch.train  # noqa: F401  (training: steps, optim)
     import repro_torch.launch.collectives  # noqa: F401
+    import repro_torch.launch.dryrun  # noqa: F401  (sharded training)
     check(not any(m == "jax" or m.startswith(("jax.", "repro."))
                   or m == "repro" for m in sys.modules),
           "the port pulled in JAX or the JAX package")
@@ -3644,13 +3900,15 @@ def main(argv=None) -> int:
     train_parity = run(phase_train_parity, dev, smi)
     train_resume = run(phase_train_resume, dev, smi)
     train_dp = run(phase_train_dp, dev, smi)
+    train_sharded, sharded_counts = run(phase_train_sharded, dev, smi)
     rows, grid, extra = run(phase_timings, dev, worst, smi)
     rows["quant_gemm_f32"] = serve["kernel_row"]
     rows["decode_split_f32"] = train["kernel_row"]
 
     by_path = dict(main=counts, refine=refine_counts, qr=qr_counts,
                    ensemble=ens_counts, golden=golden_counts, ft=ft_counts,
-                   dist=dist_counts, serve=serve_counts, train=train_counts)
+                   dist=dist_counts, serve=serve_counts, train=train_counts,
+                   train_sharded=sharded_counts)
     for path, names in ON_PATH.items():
         for name in names:
             check(by_path[path][name] > 0,
@@ -3695,6 +3953,7 @@ def main(argv=None) -> int:
                  dist=dist_report, models=models, serve=serve,
                  train=train, train_parity=train_parity,
                  train_resume=train_resume, train_dp=train_dp,
+                 train_sharded=train_sharded,
                  kernels=kernels, timings=list(rows.values()),
                  gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))

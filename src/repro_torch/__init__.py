@@ -37,15 +37,18 @@ continuous-batching ``Engine``, ``traffic``, ``study``), training
 (``optim``: AdamW with p16e1 moments; ``data``: the seeded synthetic
 batches; ``launch``: the train, compressed data-parallel train, prefill
 and serve steps, the p16e1-compressed gradient sum over a ``dist`` grid
-and the ``python -m repro_torch.launch.train`` CLI), ``tree`` (the
-param/state trees) and ``interop`` (words, pivots, quires, the
-reference's model params, gradients and training state both ways).
+and the ``python -m repro_torch.launch.train`` CLI; sharded training:
+the ("data", "model") mesh and ``DistContext`` over
+``torch.distributed``, the sharding rules as per-rank blocks, the
+expert-parallel MoE, the vocab-parallel embedding, the sharded train
+step and the meta-device dry run), ``tree`` (the param/state trees) and
+``interop`` (words, pivots, quires, the reference's model params,
+gradients and training state both ways).
 
-Not yet ported (ROADMAP.md, queue A): the sharded half of launch (A13b:
-``launch/{sharding,mesh,context,dryrun}``, ``moe_apply_ep`` and the
-vocab-parallel embedding) and the port's benches (A14).  Never to be
-ported: ``launch/compat.py`` and ``launch/hlo_analysis.py``, which work
-on jax internals and XLA HLO text.
+Not yet ported (ROADMAP.md, queue A): the port's benches (A14) and
+examples (A15).  Never to be ported: ``launch/compat.py`` and
+``launch/hlo_analysis.py``, which work on jax internals and XLA HLO
+text.
 
 Functions that take tensors run where the tensors live; entry points that
 build tensors take ``device="cuda"`` by default and raise when no GPU is

@@ -1,11 +1,12 @@
-"""Training launch (counterpart of ``repro.launch``, single device and
-data-parallel): ``steps`` (train, compressed data-parallel train, prefill
-and serve steps), ``collectives`` (the posit16-compressed gradient sum
-over a ``dist`` grid) and ``train`` (the CLI).
+"""Training launch (counterpart of ``repro.launch``): ``steps`` (train,
+sharded train, compressed data-parallel train, prefill and serve steps),
+``collectives`` (the posit16-compressed gradient sum over a ``dist``
+grid), ``train`` (the CLI), ``mesh`` (the ("data", "model") mesh on a
+``dist`` grid's process groups and its autograd collectives),
+``context`` (``DistContext``), ``sharding`` (the logical-axis rules and
+the per-rank blocks they name) and ``dryrun`` (each cell's plan on the
+meta device).
 
 Not here.  ``compat.py`` and ``hlo_analysis.py`` are never ported (they
-work on jax internals and XLA HLO text).  The sharded half (``sharding``:
-FSDP/TP partition specs, ``mesh``, ``context``, ``dryrun``, the MoE's
-expert-parallel ``moe_apply_ep`` and the vocab-parallel embedding) comes
-in a later slice.
+work on jax internals and XLA HLO text).
 """

@@ -95,9 +95,15 @@ def blockwise_attention(q, k, v, *, q_positions, causal: bool,
         out = _mix(p, v)
         return out.reshape(b, sq, hq, dh).to(q.dtype)
 
-    chunk = min(chunk, sk)
-    if sk % chunk:                       # largest divisor of sk
-        chunk = next(c for c in range(chunk, 0, -1) if sk % c == 0)
+    # Under a distribution context a chunk never straddles a "model"
+    # shard of S (the reference's choice, which fixes the sum order).
+    from repro_torch.launch import context as dist_ctx
+    ctx = dist_ctx.current()
+    n_shards = ctx.mesh.shape.get("model", 1) if ctx is not None else 1
+    shard_size = sk // n_shards if sk % n_shards == 0 else sk
+    chunk = min(chunk, shard_size, sk)
+    if shard_size % chunk:               # largest divisor of shard_size
+        chunk = next(c for c in range(chunk, 0, -1) if shard_size % c == 0)
     qpos = torch.as_tensor(q_positions, device=dev).to(torch.int32)
     vlen = 2 ** 30 if kv_valid_len is None else kv_valid_len
     spec = (chunk, vlen, causal, window)

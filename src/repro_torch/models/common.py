@@ -14,9 +14,9 @@ compute dtype, products are summed in f32 where the reference asks for
 ``preferred_element_type=float32`` (``dot_f32``), and ``rmsnorm`` reduces
 in f32 and scales in the compute dtype.
 
-The reference's distribution branches (the vocab-parallel ``shard_map``
-embedding, ``DistContext.f32_partials``) belong to the launch layer,
-which is not ported; these functions are its single-device paths.
+Under a distribution context (``launch.context``) ``embed`` is the
+reference's vocab-parallel embedding; without one it is the
+single-device path.
 """
 from __future__ import annotations
 
@@ -119,10 +119,15 @@ class Rng:
 
     def __init__(self, seed: int, device="cuda"):
         self.device = _device.resolve(device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(int(seed))
+        self.gen = None
+        if self.device.type != "meta":        # meta: shapes only
+            self.gen = torch.Generator(device=self.device)
+            self.gen.manual_seed(int(seed))
 
     def normal(self, shape) -> torch.Tensor:
+        if self.gen is None:
+            return torch.empty(tuple(shape), dtype=torch.float32,
+                               device=self.device)
         return torch.randn(tuple(shape), generator=self.gen,
                            device=self.device, dtype=torch.float32)
 
@@ -209,9 +214,8 @@ def linear(params, x, policy: Policy, compute_dtype):
     """Policy-aware dense layer: the policy's weight and activation
     rounding (``core.policy.quantize``, straight-through under autograd),
     then a product summed in f32 whose output is rounded to the compute
-    dtype, in training as in prefill (the reference's training output;
-    its ``DistContext.f32_partials`` belongs to the sharded launch layer,
-    not ported).  A posit-quantized weight leaf goes through
+    dtype once (what the reference computes with or without its
+    ``f32_partials`` flag).  A posit-quantized weight leaf goes through
     ``serving.quantize.quant_matmul`` (its backend decides: decoded f32
     ``torch.matmul``, or the Hopper posit GEMM kernel on the words); the
     policy's weight/activation rounding does not stack on top, the leaf
@@ -234,15 +238,44 @@ def embed_init(rng, vocab, d):
     return {"table": param(rng, (vocab, d), ("vocab", "embed"), scale=1.0)}
 
 
-def embed(params, ids, compute_dtype):
+def vocab_parallel(vocab: int):
+    """The distribution context under which the embedding table is
+    vocab-parallel (its "model" axis has n > 1 ranks that divide
+    ``vocab``: model rank ``m`` holds the rows ``[m * v_local, (m + 1) *
+    v_local)``), else None."""
+    from repro_torch.launch import context as dist_ctx
+    ctx = dist_ctx.current()
+    n = ctx.mesh.shape.get("model", 1) if ctx is not None else 1
+    return ctx if n > 1 and vocab % n == 0 else None
+
+
+def embed(params, ids, compute_dtype, vocab: Optional[int] = None):
     """Embedding lookup.  A quantized table decodes only the rows it
     gathers (the same values as gathering from the decoded table: the
-    decode is elementwise and the scales are per column)."""
+    decode is elementwise and the scales are per column).
+
+    Vocab-parallel under ``vocab_parallel(vocab)`` (``vocab`` the whole
+    vocabulary, default the table's rows): the table given is then this
+    model rank's rows; it looks up the ids it holds, zero for the others,
+    and the rows are summed in f32 over "model" (an autograd psum, so the
+    table's gradient lands on the rows each rank holds).  One rank holds
+    each id, so the sum is the plain gather's value."""
     t = params["table"]
     if is_qleaf(t):
         from repro_torch.serving.quantize import dequant_rows
         return dequant_rows(t, ids).to(compute_dtype)
-    return leaf(t)[ids].to(compute_dtype)
+    table = leaf(t)
+    ctx = vocab_parallel(table.shape[0] if vocab is None else vocab)
+    if ctx is None:
+        return table[ids].to(compute_dtype)
+    from repro_torch.launch import mesh as M
+    v_local = table.shape[0]
+    adj = ids.long() - ctx.mesh.axis_index("model") * v_local
+    valid = (adj >= 0) & (adj < v_local)
+    g = table[adj.clamp(0, v_local - 1)].to(compute_dtype)
+    g = torch.where(valid[..., None], g,
+                    torch.zeros((), dtype=compute_dtype, device=g.device))
+    return M.psum(g.float(), ctx.mesh, "model").to(compute_dtype)
 
 
 def unembed(params, x, compute_dtype):

@@ -47,7 +47,8 @@ from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (ArchConfig, Rng, dot_f32, embed,
                                        embed_init, leaf, param, rmsnorm,
-                                       rmsnorm_init, unembed)
+                                       rmsnorm_init, unembed,
+                                       vocab_parallel)
 
 
 def period_of(cfg: ArchConfig) -> int:
@@ -171,6 +172,21 @@ def _encoder(params, frames, cfg, policy, dtype):
     return rmsnorm(params["enc"]["final_norm"], x, cfg.norm_eps)
 
 
+def _logit_params(params, cfg: ArchConfig):
+    """``params`` as the logits read them: under the vocab-parallel
+    embedding (``common.vocab_parallel``) a tied table is this model
+    rank's rows, all-gathered here once (the backward reduce-scatters its
+    gradient back to the rows)."""
+    ctx = vocab_parallel(cfg.vocab) if cfg.tie_embeddings else None
+    if ctx is None:
+        return params
+    from repro_torch.launch.mesh import all_gather
+    table = params["embed"]["table"]
+    whole = all_gather(leaf(table), ctx.mesh, "model", 0)
+    return dict(params, embed=dict(params["embed"],
+                                   table=dict(table, w=whole)))
+
+
 def _logits(params, x, cfg, dtype):
     if cfg.tie_embeddings:
         return unembed(params["embed"], x, dtype)
@@ -179,7 +195,8 @@ def _logits(params, x, cfg, dtype):
 
 def _backbone(params, batch, cfg: ArchConfig, remat: bool = False):
     policy, dtype = _dtype(cfg)
-    x = embed(params["embed"], batch["tokens"], dtype)
+    tokens = batch["tokens"]
+    x = embed(params["embed"], tokens, dtype, vocab=cfg.vocab)
 
     enc_out = None
     if cfg.family == "encdec":
@@ -229,7 +246,8 @@ def forward_prefill(params, batch, cfg: ArchConfig):
     and "frames" (encdec) / "vis" (vlm) embeddings}."""
     _, dtype = _dtype(cfg)
     x, _ = _backbone(params, batch, cfg)
-    return _logits(params, x[:, -1:, :], cfg, dtype)[:, 0, :]
+    return _logits(_logit_params(params, cfg), x[:, -1:, :], cfg,
+                   dtype)[:, 0, :]
 
 
 def _chunked_ce(params, x, targets, cfg, dtype, max_chunk_elems=2 ** 26):
@@ -237,7 +255,15 @@ def _chunked_ce(params, x, targets, cfg, dtype, max_chunk_elems=2 ** 26):
     vocab`` tokens (the largest divisor of S below that), each chunk's
     f32 logits recomputed in the backward.  Returns (mean loss over the
     targets >= 0, their count), both f32."""
+    tot, cnt = chunked_ce_sum(params, x, targets, cfg, dtype,
+                              max_chunk_elems)
+    return tot / torch.clamp(cnt, min=1.0), cnt
+
+
+def chunked_ce_sum(params, x, targets, cfg, dtype, max_chunk_elems=2 ** 26):
+    """``_chunked_ce``'s (sum of the losses, count), f32."""
     b, s, _ = x.shape
+    params = _logit_params(params, cfg)
     chunk = max(min(s, max_chunk_elems // max(cfg.vocab, 1)), 1)
     while s % chunk:
         chunk -= 1
@@ -256,7 +282,7 @@ def _chunked_ce(params, x, targets, cfg, dtype, max_chunk_elems=2 ** 26):
         part, n = checkpoint(body, x[:, c0:c0 + chunk],
                              targets[:, c0:c0 + chunk], use_reentrant=False)
         tot, cnt = tot + part, cnt + n
-    return tot / torch.clamp(cnt, min=1.0), cnt
+    return tot, cnt
 
 
 def forward_train(params, batch, cfg: ArchConfig, remat: bool = False):
@@ -311,7 +337,7 @@ def serve_step(params, cache, tokens, pos, cfg: ArchConfig):
     engine decodes requests at different depths in one step).
     Returns (logits (B,V) f32, new_cache)."""
     policy, dtype = _dtype(cfg)
-    x = embed(params["embed"], tokens, dtype)
+    x = embed(params["embed"], tokens, dtype, vocab=cfg.vocab)
     if torch.is_tensor(pos) and pos.dim() == 1:
         pos = pos.to(device=x.device, dtype=torch.int32)
         positions = pos.reshape(-1, 1)
@@ -342,7 +368,7 @@ def serve_step(params, cache, tokens, pos, cfg: ArchConfig):
             new_shared.append(nc)
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = _logits(params, x[:, 0, :], cfg, dtype)
+    logits = _logits(_logit_params(params, cfg), x[:, 0, :], cfg, dtype)
     new_cache = dict(cache)
     new_cache["layers"] = new_layers
     if "shared" in cache:

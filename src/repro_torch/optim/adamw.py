@@ -60,17 +60,20 @@ def _moment_leaves(moments, n: int) -> list[tuple]:
 
 @torch.no_grad()
 def adamw_update(params, opt_state, grads, *, lr=3e-4, b1=0.9, b2=0.95,
-                 eps=1e-8, wd=0.01, clip=1.0, compress_moments=False):
+                 eps=1e-8, wd=0.01, clip=1.0, compress_moments=False,
+                 grad_norm=None):
     """One AdamW step: (new params, new state, global grad norm before
     the clip).  params/grads: matching trees (f32 params; grads of any
-    float dtype, summed in f32).
+    float dtype, summed in f32).  ``grad_norm``: the global norm when the
+    trees are one rank's shards of larger ones (the sharded step's);
+    default the norm of ``grads``.
 
     The bias corrections ``1 - b**t`` are computed on the host in f64 and
     rounded to f32 once, so that the card and the host divide by the
     same numbers (the reference computes them with an f32 ``pow`` on its
-    device)."""
+    device).  On the meta device (the dry run) the step is taken as 1."""
     step = opt_state["step"] + 1
-    t = int(step)
+    t = 1 if step.is_meta else int(step)
     flat_p = _tree.leaves(params)
     flat_g = _tree.leaves(grads)
     if len(flat_g) != len(flat_p):
@@ -79,7 +82,8 @@ def adamw_update(params, opt_state, grads, *, lr=3e-4, b1=0.9, b2=0.95,
     like = flat_p[0]
 
     # global-norm clip
-    gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in flat_g))
+    gnorm = grad_norm if grad_norm is not None else torch.sqrt(
+        sum(torch.sum(g.float() ** 2) for g in flat_g))
     scale = torch.minimum(_f32(1.0, like),
                           clip / torch.maximum(gnorm, _f32(1e-12, like)))
     c1, c2 = _f32(1.0 - b1 ** t, like), _f32(1.0 - b2 ** t, like)

@@ -701,6 +701,43 @@ def test_cuda_train_step_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_sharded_train_step_codec_on_the_kernels(cuda_device, tmp_path):
+    """Four gloo ranks sharing the card (host-staged collectives) as a 2x2
+    ("data", "model") mesh: one sharded ``make_train_step`` of tiny qwen2
+    at posit32.  Every codec call of every rank (the gathered weights'
+    and the activations' rounding) is bit-identical to the plain codec on
+    its operand, each launches its kernel once, and the loss is within
+    1e-5 of one process's on the card (the same seeded params: the
+    card's generator)."""
+    from repro_torch.configs import ShapeCell, get_tiny_config
+    from repro_torch.data import make_batch
+    from repro_torch.dist import launch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    import torch_dist_cases as tc
+    case = dict(arch="qwen2-0.5b", policy="posit32", mesh=(2, 2),
+                seq_shard=True, seq=16, batch=4, steps=1, lr=1e-3, seed=0,
+                remat=False)
+    _build.lib()                  # build once; the ranks load the cache
+    ranks = launch.run(tc.card_sharded_codec, 2, 2, tmp_path / "grid",
+                       args=(case,), backend="gloo", device="cuda",
+                       host_staging=True, timeout=600)
+    cfg = get_tiny_config(case["arch"], policy=case["policy"])
+    p = init_params(0, cfg, device=cuda_device)
+    _, _, m = make_train_step(cfg, remat=False, lr=1e-3)(
+        p, adamw_init(p), make_batch(cfg, ShapeCell("e2e", "train", 16, 4),
+                                     0, device=cuda_device))
+    for rank in ranks:
+        assert rank["calls"] > 0 and not rank["bad"], rank["bad"]
+        assert rank["launches"]["encode_posit_f32"] == rank["calls"] // 2
+        assert rank["launches"]["decode_split_f32"] == rank["calls"] // 2
+        assert abs(rank["losses"][0] - float(m["loss"])) <= 1e-5 * float(
+            m["loss"])
+
+
+@pytest.mark.cuda
 def test_cuda_train_cli(cuda_device, tmp_path):
     """``python -m repro_torch.launch.train --smoke --steps 3`` runs on
     the card by default and prints finite losses."""

@@ -83,7 +83,7 @@ def load_words(path, device="cpu") -> dict:
 
 
 def _np(t) -> np.ndarray:
-    return t.cpu().numpy()
+    return t.detach().cpu().numpy()
 
 
 def _counters(fn):
@@ -297,4 +297,350 @@ def train_dp(grid, run: dict, axis: str = "all",
            "params": [_np(w) for w in tree.leaves(params)]}
     if sum_axes:
         out["cases"] = compressed_sums(grid, sum_axes)
+    return out
+
+
+# --------------------------------------------------------------------------
+# the sharded launch layer (tests/test_torch_launch.py,
+# tests/test_torch_sharded.py): each body takes a 2x2 grid and builds the
+# 2x2 ("data", "model") mesh and the 1x4 one on its four ranks
+# --------------------------------------------------------------------------
+
+MESHES = ((2, 2), (1, 4))
+EP_SEQS = (None, "model")
+EP_CAPACITY = 4.0
+EXPERT_KEYS = ("router", "w_gate", "w_up", "w_down")
+
+
+def ep_inputs(seed: int = 30) -> dict:
+    """x, the cotangent c and the granite-moe smoke config's MoE weights
+    (d_model 64, 4 experts, d_ff 64), numpy from a seed."""
+    rng = np.random.default_rng(seed)
+    d, e, f = 64, 4, 64
+    return {"x": rng.standard_normal((4, 8, d)).astype(np.float32),
+            "c": rng.standard_normal((4, 8, d)).astype(np.float32),
+            "router": (rng.standard_normal((d, e)) / 8).astype(np.float32),
+            "w_gate": (rng.standard_normal((e, d, f)) / 8).astype(np.float32),
+            "w_up": (rng.standard_normal((e, d, f)) / 8).astype(np.float32),
+            "w_down": (rng.standard_normal((e, f, d)) / 8).astype(np.float32)}
+
+
+def ep_config(policy: str = "f32"):
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"),
+                               policy=policy)
+
+
+def moe_params(ws: dict, device) -> dict:
+    """The MoE param dict of ``ws`` (EXPERT_KEYS -> arrays) on ``device``,
+    every weight requiring a gradient."""
+    from repro_torch.tree import Axes
+
+    def p(a, axes):
+        return {"w": torch.from_numpy(np.array(a)).to(device)
+                .requires_grad_(True), "axes": Axes(axes)}
+    return {"router": {"w": p(ws["router"], (None, None))},
+            "w_gate": p(ws["w_gate"], ("experts", None, "mlp")),
+            "w_up": p(ws["w_up"], ("experts", None, "mlp")),
+            "w_down": p(ws["w_down"], ("experts", "mlp", None))}
+
+
+def ep_rank(grid, inputs: dict, shape, seq, policy: str = "f32") -> dict:
+    """``moe_apply_ep`` on this rank of the ``shape`` mesh: x its batch
+    rows, the experts its shard; the loss share sum(y * c) / (model ranks)
+    and its gradients (x's and the router's partial, the experts' this
+    rank's shard, each still to be summed over the ranks that share it)."""
+    from repro_torch.launch.context import DistContext
+    from repro_torch.launch.mesh import make_data_model_mesh
+    from repro_torch.launch.sharding import P, block
+    from repro_torch.models.ffn import moe_apply_ep
+    cfg = ep_config(policy)
+    mesh = make_data_model_mesh(grid, *shape)
+    ctx = DistContext(mesh=mesh, dp=("data",), seq=seq)
+    dev = grid.device
+    rows = P("data", None, None)
+    x = block(torch.from_numpy(inputs["x"]), rows, mesh).to(dev) \
+        .requires_grad_(True)
+    c = block(torch.from_numpy(inputs["c"]), rows, mesh).to(dev)
+    ws = {k: inputs[k] if k == "router" else
+          block(torch.from_numpy(inputs[k]), P("model", None, None),
+                mesh).numpy() for k in EXPERT_KEYS}
+    params = moe_params(ws, dev)
+    y, aux = moe_apply_ep(params, x, cfg, cfg.get_policy(), torch.float32,
+                          ctx, capacity_factor=EP_CAPACITY)
+    share = torch.sum(y * c) / mesh.shape["model"]
+    leaves = [x, params["router"]["w"]["w"]] + [params[k]["w"]
+                                                 for k in EXPERT_KEYS[1:]]
+    grads = torch.autograd.grad(share, leaves)
+    return {"coords": dict(mesh.coords), "y": _np(y), "aux": float(aux.detach()),
+            "grads": dict(zip(("x",) + EXPERT_KEYS, map(_np, grads))),
+            "counts": dict(mesh.counts)}
+
+
+def ep_cases(grid, path) -> dict:
+    """``ep_rank`` on every mesh of MESHES and every EP_SEQS choice, on
+    the inputs in the npz file ``path``."""
+    inputs = dict(np.load(path))
+    return {f"{s[0]}x{s[1]}.{seq}": ep_rank(grid, inputs, s, seq)
+            for s in MESHES for seq in EP_SEQS}
+
+
+EMBED_FORMS = ("embed", "tied")
+
+
+def embed_inputs(seed: int = 31) -> dict:
+    rng = np.random.default_rng(seed)
+    vocab, d = 64, 8
+    return {"table": rng.standard_normal((vocab, d)).astype(np.float32),
+            "ids": rng.integers(0, vocab, (4, 8)).astype(np.int32),
+            "c": rng.standard_normal((4, 8, d)).astype(np.float32),
+            "c2": rng.standard_normal((4, 8, vocab)).astype(np.float32)}
+
+
+def embed_loss(table, ids, c, c2, form: str):
+    """(y, logits or None, sum(y * c) [+ sum(logits * c2)]): ``embed``'s
+    rows of ``ids`` (vocab-parallel under a context: ``table`` is then
+    this rank's rows of the ``c2.shape[-1]`` words) and, for the "tied"
+    form, their logits against the tied table as ``lm._logits`` takes it
+    from ``lm._logit_params``."""
+    import types
+
+    from repro_torch.models.common import embed, unembed
+    from repro_torch.models.lm import _logit_params
+    from repro_torch.tree import Axes
+    vocab = c2.shape[-1]
+    params = {"embed": {"table": {"w": table,
+                                  "axes": Axes(("vocab", "embed"))}}}
+    y = embed(params["embed"], ids, torch.float32, vocab=vocab)
+    loss = torch.sum(y * c)
+    logits = None
+    if form == "tied":
+        cfg = types.SimpleNamespace(vocab=vocab, tie_embeddings=True)
+        logits = unembed(_logit_params(params, cfg)["embed"], y,
+                         torch.float32)
+        loss = loss + torch.sum(logits * c2)
+    return y, logits, loss
+
+
+def embed_rank(grid, inputs: dict, shape, form: str) -> dict:
+    """The vocab-parallel ``embed`` on this rank of the ``shape`` mesh:
+    the ids of its batch rows against the table's rows of its "model"
+    coordinate (``embed_loss`` of ``form`` under the context); y, the
+    logits and the gradient, with respect to those rows, of the loss of
+    the first model rank (the others' times zero: every model rank has
+    the same rows)."""
+    from repro_torch.launch import context as dist_ctx
+    from repro_torch.launch.mesh import make_data_model_mesh
+    from repro_torch.launch.sharding import P, block
+    mesh = make_data_model_mesh(grid, *shape)
+    ctx = dist_ctx.DistContext(mesh=mesh, dp=("data",))
+    dev = grid.device
+    table = block(torch.from_numpy(inputs["table"]), P("model", None), mesh)
+    table = table.clone().to(dev).requires_grad_(True)
+    rows = [block(torch.from_numpy(inputs[k]), P("data"), mesh).to(dev)
+            for k in ("ids", "c", "c2")]
+    with dist_ctx.use(ctx):
+        y, logits, loss = embed_loss(table, *rows, form)
+        if mesh.coords["model"]:
+            loss = loss * 0.0
+        (g,) = torch.autograd.grad(loss, [table])
+    return {"coords": dict(mesh.coords), "y": _np(y),
+            "logits": None if logits is None else _np(logits),
+            "grad": _np(g), "counts": dict(mesh.counts)}
+
+
+def fsdp_case(grid) -> dict:
+    """A 4M-element leaf with the llama3-405b rule's spec on the 2x2 mesh
+    (TP over "model", FSDP over "data"): this rank's block through
+    ``shard_tree`` and the whole leaf back through ``gather_tree``."""
+    from repro_torch.launch.mesh import make_data_model_mesh
+    from repro_torch.launch.sharding import (_spec_for_axes, gather_tree,
+                                             shard_tree)
+    mesh = make_data_model_mesh(grid)
+    rng = np.random.default_rng(32)
+    shape = (4096, 1024)
+    full = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    spec = _spec_for_axes((None, "mlp"), shape, mesh, fsdp=True)
+    tree = {"w": full.to(grid.device), "b": {"x": full[:8, :8].clone()}}
+    specs = {"w": spec, "b": {"x": type(spec)(None, None)}}
+    blocks = shard_tree(tree, specs, mesh)
+    back = gather_tree(blocks, specs, mesh)
+    return {"spec": tuple(spec), "block_shape": tuple(blocks["w"].shape),
+            "identical": bool(torch.equal(back["w"].cpu(), full)
+                              and torch.equal(back["b"]["x"].cpu(),
+                                              full[:8, :8])),
+            "counts": dict(mesh.counts)}
+
+
+def launch_cases(grid, path) -> dict:
+    """test_torch_launch.py's rank body: ``embed_rank`` on every mesh of
+    MESHES in both EMBED_FORMS, ``fsdp_case``, and this rank's
+    coordinates on each mesh."""
+    from repro_torch.launch.mesh import make_data_model_mesh, make_grid_mesh
+    inputs = dict(np.load(path))
+    out = {f"{s[0]}x{s[1]}.{form}": embed_rank(grid, inputs, s, form)
+           for s in MESHES for form in EMBED_FORMS}
+    out["fsdp"] = fsdp_case(grid)
+    out["coords"] = {"grid": make_grid_mesh(grid).coords, **{
+        f"{s[0]}x{s[1]}": make_data_model_mesh(grid, *s).coords
+        for s in MESHES}}
+    return out
+
+
+def sharded_run(grid, case: dict) -> dict:
+    """``case["steps"]`` steps of the sharded ``make_train_step`` of the
+    tiny config of ``case["arch"]`` at ``case["policy"]`` on the
+    ``case["mesh"]`` mesh (``seq_shard`` as given), from the seeded
+    params and batches every process makes alike: the losses and grad
+    norms, the params and moments gathered back to full leaves and, with
+    ``case["aux"]``, ``sharded_aux`` before the first step."""
+    from repro_torch import tree
+    from repro_torch.configs import ShapeCell, get_tiny_config
+    from repro_torch.data import make_batch
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_data_model_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    cfg = get_tiny_config(case["arch"], policy=case["policy"])
+    mesh = make_data_model_mesh(grid, *case["mesh"])
+    cell = ShapeCell("e2e", "train", case["seq"], case["batch"])
+    dist = shd.dist_for(cfg, cell, mesh, seq_shard=case["seq_shard"])
+    bspecs = shd.batch_shardings(cfg, cell, mesh,
+                                 seq_shard=case["seq_shard"])
+    step = make_train_step(cfg, remat=case["remat"], lr=case["lr"],
+                           dist=dist)
+    full = init_params(case["seed"], cfg, device=grid.device)
+    compress = cfg.get_policy().opt_compression is not None
+    opt = adamw_init(full, compress_moments=compress)
+    ospecs = shd.opt_shardings(opt, step.plan.specs, mesh)
+    params, opt = step.plan.shard(full), shd.shard_tree(opt, ospecs, mesh)
+    aux = sharded_aux(step, cfg, dist, params, shd.shard_tree(make_batch(
+        cfg, cell, 0, seed=case["seed"], device=grid.device), bspecs,
+        mesh)) if case.get("aux") else None
+    mesh.reset_counts()
+    losses, gnorms = [], []
+    for i in range(case["steps"]):
+        batch = make_batch(cfg, cell, i, seed=case["seed"],
+                           device=grid.device)
+        params, opt, m = step(params, opt, shd.shard_tree(batch, bspecs,
+                                                          mesh))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    params = shd.gather_tree(params, step.plan.specs, mesh)
+    opt = shd.gather_tree(opt, ospecs, mesh)
+    return {"losses": losses, "grad_norms": gnorms, "aux": aux,
+            "seq": dist.seq, "dp": dist.dp,
+            "params": [_np(w) for w in tree.leaves(params)],
+            "moments": [_np(w) for w in tree.leaves(opt["moments"])],
+            "counts": dict(mesh.counts)}
+
+
+def sharded_aux(step, cfg, dist, params, batch) -> float:
+    """The summed MoE load-balance loss of the layers in the sharded
+    step's forward on this rank's ``params`` and ``batch`` blocks."""
+    from repro_torch.core.policy import torch_dtype
+    from repro_torch.launch import context as dist_ctx
+    from repro_torch.launch.mesh import all_gather
+    from repro_torch.launch.steps import _cast_params
+    from repro_torch.models.lm import _backbone
+    tokens = batch["tokens"]
+    with torch.no_grad(), dist_ctx.use(dist):
+        if dist.seq is not None:
+            tokens = all_gather(tokens, dist.mesh, dist.seq, 1)
+        full = step.plan.gather(_cast_params(
+            params, torch_dtype(cfg.get_policy().compute_dtype)))
+        _, aux = _backbone(full, dict(batch, tokens=tokens), cfg)
+    return float(aux)
+
+
+def sharded_runs(grid, cases: dict) -> dict:
+    return {name: sharded_run(grid, case) for name, case in cases.items()}
+
+
+def sharded_cases(grid, ep_path, runs: dict) -> dict:
+    """test_torch_sharded.py's rank body: ``ep_cases`` on the inputs in
+    ``ep_path``, then ``sharded_runs`` of ``runs``."""
+    return {"ep": ep_cases(grid, ep_path), "runs": sharded_runs(grid, runs)}
+
+
+def ep_assemble(ranks, tag: str, shape):
+    """``ep_cases``' per-rank results of ``tag`` on the ``shape`` mesh put
+    together: y by batch rows; x's gradient summed over "model" by batch
+    rows, the router's over every rank, each expert stack's summed over
+    "data" and concatenated over "model".  ``ranks``: each rank's
+    ``ep_cases`` dict."""
+    p, q = shape
+    x = ep_inputs()["x"]
+    rows = x.shape[0] // p
+    y, gx = np.zeros_like(x), np.zeros_like(x)
+    grads = {"router": 0.0}
+    experts = {k: [0.0] * q for k in EXPERT_KEYS[1:]}
+    for r in ranks:
+        got = r[tag]
+        d, m = got["coords"]["data"], got["coords"]["model"]
+        y[d * rows:(d + 1) * rows] = got["y"]
+        gx[d * rows:(d + 1) * rows] += got["grads"]["x"]
+        grads["router"] = grads["router"] + got["grads"]["router"]
+        for k in experts:
+            experts[k][m] = experts[k][m] + got["grads"][k]
+    grads["x"] = gx
+    grads.update({k: np.concatenate(v) for k, v in experts.items()})
+    return y, grads
+
+
+def ep_local(device="cpu"):
+    """One process's ``moe_apply_local`` on ``ep_inputs()`` on ``device``:
+    y and the gradients of sum(y * c), numpy."""
+    from repro_torch.models.ffn import moe_apply_local
+    inputs = ep_inputs()
+    cfg = ep_config()
+    params = moe_params(inputs, device)
+    x = torch.from_numpy(inputs["x"]).to(device).requires_grad_(True)
+    y, _ = moe_apply_local(params, x, cfg, cfg.get_policy(), torch.float32)
+    leaves = [x, params["router"]["w"]["w"]] + [params[k]["w"]
+                                                 for k in EXPERT_KEYS[1:]]
+    grads = torch.autograd.grad(torch.sum(
+        y * torch.from_numpy(inputs["c"]).to(device)), leaves)
+    return _np(y), dict(zip(("x",) + EXPERT_KEYS, map(_np, grads)))
+
+
+def card_sharded_codec(grid, case: dict) -> dict:
+    """``sharded_run`` of ``case`` with every call of the two codec
+    kernels' wrappers held to the plain codec on its own operand, bit for
+    bit (the encode's words to ``core.posit.from_float32_bits`` narrowed
+    to the wire dtype, the decode's pair to ``decode_split_f32_plain``):
+    the run, the number of calls, the calls that differ and the launches
+    the wrappers counted."""
+    from repro_torch.kernels import posit_gemm as pg
+    enc, dec = pg.encode_posit_f32, pg.decode_split_f32
+    calls = []
+
+    def same(a, b):
+        return bool(torch.equal(a.view(torch.int32) if a.is_floating_point()
+                                else a, b.view(torch.int32)
+                                if b.is_floating_point() else b))
+
+    def encode(x, fmt=pg.P32E2, out_dtype=torch.int32):
+        out = enc(x, fmt, out_dtype=out_dtype)
+        want = posit.from_float32_bits(x, fmt).to(out_dtype)
+        calls.append(("encode", fmt.name, same(out, want)))
+        return out
+
+    def decode(p, fmt=pg.P32E2):
+        hi, lo = dec(p, fmt)
+        ph, pl = pg.decode_split_f32_plain(p, fmt)
+        calls.append(("decode", fmt.name, same(hi, ph) and same(lo, pl)))
+        return hi, lo
+    pg.reset_launch_counts()
+    encode.launches = decode.launches = 0
+    pg.encode_posit_f32, pg.decode_split_f32 = encode, decode
+    try:
+        out = sharded_run(grid, case)
+    finally:
+        enc.launches, dec.launches = encode.launches, decode.launches
+        pg.encode_posit_f32, pg.decode_split_f32 = enc, dec
+    out.update(calls=len(calls), bad=[c for c in calls if not c[2]][:4],
+               launches=pg.launch_counts())
     return out
