@@ -57,11 +57,16 @@ gradient sum against one process; ``[train sharded]``: the sharded
 ``make_train_step`` of qwen2-0.5b at its published widths on a 2x2
 ("data", "model") mesh of four ranks sharing the card and on one NCCL
 rank, against one process and the dry run's collective plan, and the
-expert-parallel MoE against the local path), and times the
-kernels: the tiled kernel and the simple one interleaved,
-the pre-pass, the f32 and f64 ``torch.matmul`` yardsticks, the whole
-``rgemm`` trailing-update call and its ``quire_exact`` form, and the
-batched launch against per-matrix ones.
+expert-parallel MoE against the local path), runs the port's ten
+example scripts (``[examples]``: ``examples/torch_<name>.py`` through
+their ``main()``, each one's launches counted and its claims checked,
+the quickstart's kernel GEMM held to the plain version), and times the
+kernels: the tiled kernel and the simple one interleaved, the pre-pass,
+the f32 and f64 ``torch.matmul`` yardsticks, the whole ``rgemm``
+trailing-update call and its ``quire_exact`` form, and the batched
+launch against per-matrix ones.  The scripts and the check-only
+``[parity]``, ``[lstsq]``, ``[ft soak]`` and ``[guarded]`` run in three
+child processes beside ``[refine]`` and ``[mp]``.
 Every phase raises on a failed check, so the script exits non-zero unless
 all of them pass.  The last line of standard
 output is ``{"ok": true, "device": {...}}``; the line before it carries
@@ -74,9 +79,10 @@ decode kernel);
 ``launches_by_path``: on the §5.1 main path and on the refinement, QR, ensemble,
 golden-zone, protected (``ft``), distributed (``dist``, every rank's),
 serving (``serve``: both replays of ``[serve]``), training
-(``train``: both runs of ``[train]``) and sharded training
-(``train_sharded``: the 2x2 ranks' steps, summed) paths, each counted
-from zero around its own run; ``on_main_path``:
+(``train``: both runs of ``[train]``), sharded training
+(``train_sharded``: the 2x2 ranks' steps, summed) and examples
+(``examples``: the ten scripts' ``main()``s, summed) paths, each
+counted from zero around its own run; ``on_main_path``:
 launched on one of them; error, times and bound).
 
 It imports nothing of JAX or of the JAX package ``repro``, and needs one
@@ -88,6 +94,7 @@ import argparse
 import contextlib
 import json
 import multiprocessing
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -274,7 +281,9 @@ ON_PATH = {"main": ("posit_gemm_f32", "decode_planes"),
            "dist": ("posit_gemm_f32", "decode_planes"),
            "serve": ("quant_gemm_f32", "encode_posit_f32"),
            "train": ("encode_posit_f32", "decode_split_f32"),
-           "train_sharded": ("encode_posit_f32", "decode_split_f32")}
+           "train_sharded": ("encode_posit_f32", "decode_split_f32"),
+           "examples": ("posit_gemm", "decode_planes", "encode_posit_f32",
+                        "decode_split_f32")}
 
 # [train]: qwen2-0.5b at its published widths through launch.train.run,
 # TRAIN_STEPS steps per policy at TRAIN_RUN; [train parity]: the tiny
@@ -300,6 +309,34 @@ TRAIN_SHARDED = dict(arch="qwen2-0.5b", policy="posit32", batch=4, seq=64,
 TRAIN_SHARDED_RTOL = 1e-5    # f32 compute: the sharded sum orders
 TRAIN_SHARDED_CODEC = 336    # 168 linears' weights and activations a step
 EP_RTOL, EP_GRAD_RTOL = 1e-6, 1e-5
+
+# [examples]: the port's example scripts, examples/torch_<name>.py, through
+# main() at the reference's sizes but for three cuts (PERF.md §4): the
+# argv each gets (a trace file and a checkpoint directory added in a
+# temporary directory), and the kernels each must launch on the card.
+EXAMPLE_ARGS = {
+    "quickstart": [],
+    "cholesky_lu_accuracy": [],
+    "quire_refine": ["--n", "64"],     # N 256: ~14 s a refinement LU's sweeps
+    "observe_solve": [],
+    "fault_tolerant_solve": [],
+    "dist_solve": ["--p", "2", "--q", "2"],    # 2x4: eight ranks on one card
+    "serve_posit": [],
+    "serve_batched": [],
+    "posit_training": [],
+    "train_100m": ["--steps", "10"],    # 150 steps at its full widths
+}
+# Two of the three child processes that run beside [refine] and [mp] in
+# main() (187 s on a host where the children took 113-120 s of scripts,
+# ~50 s of [guarded], ~34 s of [ft soak], ~160 s of [parity] + [lstsq])
+# run the scripts, the first then [guarded], the second [ft soak].
+EXAMPLE_GROUPS = (("quire_refine", "observe_solve", "cholesky_lu_accuracy"),
+                  ("dist_solve", "fault_tolerant_solve", "quickstart",
+                   "posit_training", "serve_posit", "train_100m",
+                   "serve_batched"))
+EXAMPLE_KERNELS = {"quickstart": ("posit_gemm", "decode_planes"),
+                   "serve_posit": ("encode_posit_f32",),
+                   "posit_training": ("encode_posit_f32", "decode_split_f32")}
 
 
 def say(*parts):
@@ -3538,6 +3575,288 @@ def phase_train_sharded(dev, smi):
                 nccl=nccl), counts
 
 
+# --------------------------------------------------------------------------
+# the port's example scripts
+# --------------------------------------------------------------------------
+
+def _digits_apart(x, y) -> float:
+    import math
+    return abs(math.log10(max(x, 1e-300) / max(y, 1e-300)))
+
+
+def _claims_quickstart(out, dev):
+    """Section 1's words and the faithful GEMM's equal the CPU's, the
+    xla_quire words within one ulp of them (two f64 dots); posit beats
+    binary32 at sigma=1; the formats' errors grow as they narrow; rgels_ir
+    on the least-squares floor; three observed sweeps; 2.0x weights."""
+    import numpy as np
+    import torch
+    from repro_torch.core import posit
+    from repro_torch.kernels.ops import rgemm
+    x = torch.tensor([1.0, 3.141592653589793, -0.001, 1e6],
+                     dtype=torch.float64)
+    words = posit.from_float64(x)
+    check(np.array_equal(out["words"], words.numpy()) and np.array_equal(
+        out["sum_words"], posit.add(words, words).numpy()),
+        "quickstart: section 1's words on the card != the CPU's")
+    a, b = (torch.from_numpy(out[k]) for k in ("gemm_a", "gemm_b"))
+    got = out["gemm_words"]
+    check(np.array_equal(got["faithful"],
+                         rgemm(a, b, backend="faithful").numpy()),
+          "quickstart: faithful GEMM words on the card != the CPU's")
+    ulps = np.abs(got["quire"].astype(np.int64) - rgemm(
+        a, b, backend="xla_quire").numpy().astype(np.int64)).max()
+    check(ulps <= 1, f"quickstart: xla_quire words {ulps} ulps from the "
+          "CPU's")
+    check(out["lu"][1.0].digits > 0, f"quickstart: {out['lu'][1.0]}")
+    e = [r.e_posit for r in out["formats"].values()]
+    check(e == sorted(e), f"quickstart: format errors {e} not ordered")
+    ls = out["ls"]
+    check(_digits_apart(ls["rgels_ir"], ls["optimum"]) < 0.1, f"ls {ls}")
+    check(out["observed"]["counters"]["ir.sweeps"] == 3
+          and out["weight_ratio"] == 2.0, "quickstart: sweeps / weights")
+    return (f"LU sigma=1 {out['lu'][1.0].digits:+.2f} digits, GEMM words "
+            "(faithful; xla_quire <= 1 ulp) == CPU's")
+
+
+def _claims_cholesky_lu_accuracy(out, dev):
+    """Posit(32,2) beats binary32 in the golden zone (sigma 1e-2, 1)."""
+    import numpy as np
+    for (algo, sigma), r in out.items():
+        check(np.isfinite(r.e_posit) and r.e_posit > 0, f"{algo} {r}")
+        if sigma <= 1.0:
+            check(r.digits > 0, f"cholesky_lu_accuracy: {r}")
+    return "digits " + ", ".join(f"{a} {s:g}: {r.digits:+.2f}"
+                                 for (a, s), r in out.items())
+
+
+def _claims_quire_refine(out, dev):
+    """>= 2 digits gained (tests/test_quire.py:172-181); every right-hand
+    side to < 1e-12; the mixed-precision solve on the full-width floor."""
+    for algo, r in out["studies"].items():
+        check(r.digits_gained >= 2.0, f"quire_refine {algo}: {r}")
+    check(out["batched"].max() < 1e-12, f"batched {out['batched']}")
+    check(_digits_apart(out["mp"], out["batched"][0]) < 0.5,
+          f"quire_refine: mp {out['mp']} vs IR {out['batched'][0]}")
+    return "digits gained " + ", ".join(
+        f"{a} {r.digits_gained:+.2f}" for a, r in out["studies"].items())
+
+
+def _claims_observe_solve(out, dev):
+    """Six ir.sweep rows a solve, >= 2 digits at sigma=1, each A's
+    golden-zone occupancy equal to the CPU's on the same words, a trace."""
+    import torch
+    from repro_torch import obs
+    for sigma, row in out["sigmas"].items():
+        check([r["sweep"] for r in row["sweeps"]] == list(range(6)),
+              f"observe_solve sigma={sigma}: {len(row['sweeps'])} rows")
+        check(row["occupancy"] == obs.golden_zone_fraction(
+            torch.from_numpy(row["a_words"])),
+            f"observe_solve sigma={sigma}: occupancy != the CPU's")
+    one = out["sigmas"][1.0]
+    check(one["sweeps"][-1]["digits_gained"] >= 2.0 and one["error"] < 1e-12
+          and out["trace_events"] > 0, f"observe_solve sigma=1: {one}")
+    return (f"sigma=1 {one['sweeps'][-1]['digits_gained']:+.2f} digits, "
+            f"{out['trace_events']} trace events")
+
+
+def _claims_fault_tolerant_solve(out, dev):
+    """Every seeded fault detected, every recovery bit-identical."""
+    check(out["gemm"]["detections"] == 1 and out["gemm"]["identical"]
+          and out["lu"]["detections"] >= 1 and out["lu"]["identical"]
+          and out["faulted"]["report"].detections >= 1
+          and out["faulted"]["identical"]
+          and out["benign"]["report"].outcome == "converged",
+          f"fault_tolerant_solve: {out}")
+    return (f"benign {out['benign']['report'].solver}, cond 1e5 "
+            f"{out['hard']['report'].solver}, recoveries bit-identical")
+
+
+def _claims_dist_solve(out, dev):
+    """The grid's words equal one process's on the card."""
+    check(all(out["identical"].values()) and out["residuals"].max() < 1e-12,
+          f"dist_solve: {out['identical']}, residuals {out['residuals']}")
+    return (f"x_hi, x_lo, LU, k-split GEMM words == one process's; "
+            f"residuals <= {out['residuals'].max():.2e}")
+
+
+def _claims_serve_posit(out, dev):
+    """2.0x weights and KV; batched tokens == sequential tokens."""
+    import numpy as np
+    rep, seq = out["replay"], out["sequential"]
+    check(out["weight_ratio"] == 2.0 and out["kv_ratio"] == 2.0,
+          f"serve_posit: storage {out['weight_ratio']} {out['kv_ratio']}")
+    check(rep["requests"] == 6 and set(seq) == set(rep["outputs"])
+          and all(np.array_equal(rep["outputs"][k], seq[k]) for k in seq),
+          "serve_posit: batched != sequential")
+    return f"{rep['tokens']} tokens, batched == sequential, 2.0x storage"
+
+
+def _claims_serve_batched(out, dev):
+    """(2, 8) tokens a model; each row equal to its prompt served alone."""
+    import numpy as np
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import generate
+    prompts = np.array([[5, 6, 7, 8], [1, 2, 3, 4]], np.int32)
+    for arch, toks in out.items():
+        cfg = get_smoke_config(arch)
+        check(toks.shape == (2, 8) and 0 <= toks.min()
+              and toks.max() < cfg.vocab, f"serve_batched {arch}: {toks}")
+        params = init_params(0, cfg, device=dev)
+        for row in range(2):
+            alone = generate(params, cfg, prompts[row:row + 1], max_new=8)
+            check(np.array_equal(alone[0], toks[row]),
+                  f"serve_batched {arch}: row {row} != served alone")
+    return "rows == served alone"
+
+
+def _losses_fall(what, losses):
+    import numpy as np
+    check(len(losses) > 1 and all(np.isfinite(losses))
+          and losses[-1] < losses[0], f"{what}: losses {losses}")
+    return f"{losses[0]:.4f} -> {losses[-1]:.4f}"
+
+
+def _claims_posit_training(out, dev):
+    """Each policy's losses finite and falling."""
+    return "; ".join(f"{p} {_losses_fall(p, l)}" for p, l in out.items())
+
+
+def _claims_train_100m(out, dev):
+    """Losses finite and falling at the full 100M widths."""
+    return (f"{out['params'] / 1e6:.1f}M params, loss "
+            f"{_losses_fall('train_100m', out['losses'])}")
+
+
+def run_examples(dev, names) -> dict:
+    """``names``' scripts (``examples/torch_<name>.py``) on the card
+    through their ``main()``, one after another, with EXAMPLE_ARGS.  Each
+    one's launches are counted from zero around its ``main``, the kernels
+    of EXAMPLE_KERNELS must be among them, and its own claims are checked
+    (``_claims_<name>``: the CPU tests' checks, against the CPU where the
+    tests hold to the reference); the GEMM kernel calls it made (the
+    quickstart's pallas_split3) are held to the plain version on their
+    operands (fused words = encode(kernel f32 output)).  {name: report}."""
+    import io
+    import torch
+    from repro_torch.kernels import posit_gemm as pg
+    import torch_inputs as ti
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in names:
+            cut = EXAMPLE_ARGS[name]
+            argv = cut + {"observe_solve": ["--trace", f"{tmp}/trace.json"],
+                          "train_100m": ["--ckpt-dir", f"{tmp}/ckpt"]
+                          }.get(name, [])
+            main = ti.load_example(name).main
+            printed = io.StringIO()
+            with GemmRecorder() as rec:
+                pg.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(printed):
+                    out = main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = pg.launch_counts()
+            launched = {k: v for k, v in counts.items() if v}
+            for kernel in EXAMPLE_KERNELS.get(name, ()):
+                check(counts[kernel] > 0, f"[examples] {name} launched no "
+                      f"{kernel}: {launched}")
+            summary = globals()[f"_claims_{name}"](out, dev)
+            if rec.calls:
+                n_calls, worst = check_path_gemms(f"[examples] {name}",
+                                                  rec.calls)
+                summary += (f"; kernel GEMM calls held to the plain version: "
+                            f"{n_calls} (max |kernel - plain| {worst:.3g})")
+            report[name] = dict(argv=cut, wall_s=wall, launches=counts,
+                                summary=summary, printed=printed.getvalue())
+    return report
+
+
+def child_main(calls, dev, path):
+    """``fn(torch.device(dev), *args)`` for each (name, args) of ``calls``
+    in turn, in a child process, so that the parent's phases run
+    meanwhile: one intra-op thread (the children and the parent share the
+    host's cores), the kernel library loaded from the parent's build, and
+    what they printed and returned (or the traceback) saved to ``path``."""
+    import io
+    import traceback
+    import torch
+    from repro_torch.kernels import _build
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    printed = io.StringIO()
+    out = {"results": [], "walls": {}}
+    try:
+        _build.lib()
+        with contextlib.redirect_stdout(printed):
+            for name, args in calls:
+                t0 = time.perf_counter()
+                out["results"].append(globals()[name](torch.device(dev),
+                                                      *args))
+                out["walls"][name] = time.perf_counter() - t0
+    except Exception:
+        out["error"] = traceback.format_exc()
+    out["printed"] = printed.getvalue()
+    torch.save(out, path)
+
+
+def start_child(calls, dev, path):
+    """Start ``child_main`` on ``calls`` (a spawned process: it may spawn
+    ranks of its own); returns the job ``join_child`` takes."""
+    proc = multiprocessing.get_context("spawn").Process(
+        target=child_main, args=(calls, str(dev), str(path)))
+    proc.start()
+    return [name for name, _ in calls], proc, Path(path)
+
+
+def join_child(job, walls):
+    """Wait for a ``start_child`` job, print what it printed, add its
+    calls' walls to ``walls`` (under "<child>.<name>") and return its
+    results; raises if it failed."""
+    import torch
+    names, proc, path = job
+    proc.join(1800)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    check(path.exists(), f"{names} in a child: it exited "
+          f"{proc.exitcode} and left no report")
+    got = torch.load(path, weights_only=False)
+    print(got["printed"], end="", flush=True)
+    check("error" not in got, f"{names} in a child:\n"
+          f"{got.get('error', '')[-4000:]}")
+    walls.update({f"{path.stem}.{name.removeprefix('phase_')}": secs
+                  for name, secs in got["walls"].items()})
+    return got["results"]
+
+
+def phase_examples(reports, smi):
+    """Print each example's checks, launches and wall (taken in a child
+    beside the parent's phases and the other children) from the
+    ``run_examples`` reports.  Returns ({name: report}, the launches
+    summed over the examples)."""
+    report = {}
+    for r in reports:
+        report.update(r)
+    total = {}
+    for name in EXAMPLE_ARGS:
+        r = report[name]
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+        launched = {k: v for k, v in r["launches"].items() if v}
+        say(f"[examples] {' '.join([name, *r['argv']])}: {r['summary']}; "
+            f"launches {launched}; wall {r['wall_s']:.2f} s")
+    walls = sum(r["wall_s"] for r in report.values())
+    say(f"[examples] the ten scripts in two child processes beside "
+        f"[refine], [mp] and the other children: {walls:.1f} s of main()s;"
+        f" launches {({k: v for k, v in total.items() if v})} [{smi}]")
+    return report, total
+
+
 def profile_decode_steps(engine, trace, cfg, steps=3):
     """The device's busy share over ``steps`` decode steps at full width:
     four of the trace's prompts cut to two tokens are admitted (a short
@@ -3859,12 +4178,13 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     phase_s = {}
 
-    def run(fn, *a):
-        """``fn(*a)``, its wall kept in ``phase_s`` under its name."""
+    def run(fn, *a, name=None):
+        """``fn(*a)``, its wall kept in ``phase_s`` under ``name`` (its
+        own name by default)."""
         t0 = time.perf_counter()
         out = fn(*a)
-        phase_s[fn.__name__.removeprefix("phase_")] = (time.perf_counter()
-                                                       - t0)
+        phase_s[name or fn.__name__.removeprefix("phase_")] = (
+            time.perf_counter() - t0)
         return out
     build_s, ptxas = run(phase_build)
     ref_pool = multiprocessing.get_context("spawn").Pool(1)
@@ -3880,19 +4200,31 @@ def main(argv=None) -> int:
     ref_pool.join()
     run(phase_word_parity, dev)
     quire = run(phase_quire, dev, smi)
+    # the examples and the check-only [parity], [lstsq], [ft soak] and
+    # [guarded] in child processes beside [refine] and [mp]; "children" is
+    # the parent's wait for them after [mp]
+    child_dir = tempfile.mkdtemp()
+    children = ([("run_examples", (EXAMPLE_GROUPS[0],)),
+                 ("phase_guarded", (smi,))],
+                [("run_examples", (EXAMPLE_GROUPS[1],)),
+                 ("phase_ft_soak", (smi,))],
+                [("phase_refine_parity", ()), ("phase_lstsq", (smi,))])
+    jobs = [start_child(calls, dev, f"{child_dir}/{i}.pt")
+            for i, calls in enumerate(children)]
     refine_report, refine_counts = run(phase_refine, dev, smi)
     mp_cells = run(phase_mp_cells, dev, smi)
-    run(phase_refine_parity, dev)
+    child_s = {}
+    (ex_a, guarded), (ex_b, soak), (_, lstsq) = run(
+        lambda: [join_child(job, child_s) for job in jobs], name="children")
+    shutil.rmtree(child_dir)
+    examples, examples_counts = run(phase_examples, (ex_a, ex_b), smi)
     qr_report, qr_counts = run(phase_qr, dev, smi)
-    lstsq = run(phase_lstsq, dev, smi)
     ens_report, ens_counts = run(phase_ensemble, dev, smi)
     run(phase_qr_parity, dev)
     batched = run(phase_batched_gemm, dev, smi)
     obs_report = run(phase_obs, dev, smi)
     golden, golden_counts = run(phase_golden, dev, smi)
     ft_report, ft_counts = run(phase_ft, dev, smi)
-    soak = run(phase_ft_soak, dev, smi)
-    guarded = run(phase_guarded, dev, smi)
     dist_report, dist_counts = run(phase_dist, dev, smi, main_words)
     models = run(phase_models, dev, smi)
     serve, serve_counts = run(phase_serve, dev, smi)
@@ -3908,7 +4240,7 @@ def main(argv=None) -> int:
     by_path = dict(main=counts, refine=refine_counts, qr=qr_counts,
                    ensemble=ens_counts, golden=golden_counts, ft=ft_counts,
                    dist=dist_counts, serve=serve_counts, train=train_counts,
-                   train_sharded=sharded_counts)
+                   train_sharded=sharded_counts, examples=examples_counts)
     for path, names in ON_PATH.items():
         for name in names:
             check(by_path[path][name] > 0,
@@ -3935,7 +4267,9 @@ def main(argv=None) -> int:
     total_s = time.perf_counter() - t_start
     say(f"[done] all phases passed in {total_s:.1f} s (build {build_s:.1f} s)"
         "; seconds by phase "
-        + json.dumps({k: round(v, 1) for k, v in phase_s.items()}))
+        + json.dumps({k: round(v, 1) for k, v in phase_s.items()})
+        + "; in the children beside [refine] and [mp] "
+        + json.dumps({k: round(v, 1) for k, v in child_s.items()}))
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(
@@ -3943,7 +4277,8 @@ def main(argv=None) -> int:
                  peaks=dict(fp32_flops=PEAK_FP32_FLOPS,
                             bytes_per_s=PEAK_BYTES_PER_S),
                  build_s=build_s, ptxas=ptxas, total_s=total_s,
-                 phase_s=phase_s, encode_exhaustive_s=encode_all_s,
+                 phase_s=phase_s, child_s=child_s,
+                 encode_exhaustive_s=encode_all_s,
                  codec_exhaustive_s=codec_s,
                  identity_comparisons=compared, studies=report,
                  quire=quire, refine=refine_report, mp_cells=mp_cells,
@@ -3953,7 +4288,7 @@ def main(argv=None) -> int:
                  dist=dist_report, models=models, serve=serve,
                  train=train, train_parity=train_parity,
                  train_resume=train_resume, train_dp=train_dp,
-                 train_sharded=train_sharded,
+                 train_sharded=train_sharded, examples=examples,
                  kernels=kernels, timings=list(rows.values()),
                  gemm_grid=grid, gemm_extra=extra), indent=1))
     say(json.dumps({"kernels": kernels}))

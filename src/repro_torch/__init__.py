@@ -45,8 +45,9 @@ step and the meta-device dry run), ``tree`` (the param/state trees) and
 ``interop`` (words, pivots, quires, the reference's model params,
 gradients and training state both ways).
 
-Not yet ported (ROADMAP.md, queue A): the port's benches (A14) and
-examples (A15).  Never to be ported: ``launch/compat.py`` and
+The reference's ten example scripts have their counterparts in
+``examples/torch_<name>.py``.  Not yet ported (ROADMAP.md, queue A): the
+port's benches (A14).  Never to be ported: ``launch/compat.py`` and
 ``launch/hlo_analysis.py``, which work on jax internals and XLA HLO
 text.
 

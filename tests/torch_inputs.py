@@ -4,6 +4,10 @@ It imports neither jax nor the JAX package, so the GPU-only test file and
 chip_smoke.py can use it where only PyTorch is installed.  Inputs are made
 from numpy generators, so the same seed gives the same words everywhere.
 """
+import importlib.util
+import sys
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -197,3 +201,28 @@ def guarded_problem(case: str, n: int, device="cpu"):
                                                         c["seed"])))
     b = posits(np.random.default_rng(c["rhs_seed"]), (n,), -4, 4)
     return a.to(device), b.to(device)
+
+
+# The port's example scripts, examples/torch_<name>.py, one for each of the
+# JAX package's examples/<name>.py.
+EXAMPLES_DIR = Path(__file__).resolve().parents[1] / "examples"
+EXAMPLES = ("quickstart", "cholesky_lu_accuracy", "quire_refine",
+            "observe_solve", "fault_tolerant_solve", "dist_solve",
+            "serve_posit", "serve_batched", "posit_training", "train_100m")
+
+
+def load_example(name: str):
+    """examples/torch_<name>.py loaded by path as module ``torch_<name>``.
+    It is registered in ``sys.modules`` and examples/ put on ``sys.path``,
+    so that ranks a script spawns import its rank body by that name."""
+    mod_name = f"torch_{name}"
+    if mod_name in sys.modules:
+        return sys.modules[mod_name]
+    if str(EXAMPLES_DIR) not in sys.path:
+        sys.path.append(str(EXAMPLES_DIR))
+    spec = importlib.util.spec_from_file_location(
+        mod_name, EXAMPLES_DIR / f"{mod_name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
